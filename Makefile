@@ -1,5 +1,5 @@
 # Developer workflow (parity with the reference Makefile's targets,
-# reference: Makefile:1-31, adapted to the Python/TPU stack).
+# reference: Makefile:1-31, adapted to the Python/JAX stack).
 
 PY ?= python
 # -march=native is right when the build host IS the run host (the
@@ -9,13 +9,18 @@ PY ?= python
 NATIVE_ARCH ?= native
 
 .PHONY: test test-fast bench bench-smoke standalone api worker \
-        dryrun shardcheck native clean docker-up docker-down
+        dryrun native clean docker-up docker-down
 
+NATIVE_BASE = native/jpeg_scan.cpp native/jpeg_emit.cpp native/gifquant.cpp \
+              native/iputil.cpp
+
+# ipcodec.cpp needs libjpeg's headers; without them the library is built
+# from the libjpeg-free sources (entropy scan/emit, GIF quantizer).
 native:
 	g++ -O3 -march=$(NATIVE_ARCH) -shared -fPIC -pthread \
-	  native/ipcodec.cpp native/jpeg_scan.cpp native/jpeg_emit.cpp \
-	  native/gifquant.cpp \
-	  -o native/libipcodec.so -ljpeg
+	  native/ipcodec.cpp $(NATIVE_BASE) -o native/libipcodec.so -ljpeg \
+	|| g++ -O3 -march=$(NATIVE_ARCH) -shared -fPIC -pthread \
+	  $(NATIVE_BASE) -o native/libipcodec.so
 
 test:
 	$(PY) -m pytest tests/ -q
@@ -41,11 +46,6 @@ worker:
 dryrun:
 	JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
 	$(PY) -c "import __graft_entry__ as g; g.dryrun_multichip(8)"
-
-# Compiled Mosaic fused kernel under shard_map on the live accelerator,
-# asserted bit-exact against the single-device path.
-shardcheck:
-	$(PY) tools/shardcheck.py
 
 docker-up:
 	docker compose -f deploy/docker-compose.yaml up -d

@@ -1,16 +1,17 @@
-"""imageprocessor_tpu — a TPU-native batch image-processing framework.
+"""imageprocessor_tpu — a batch image-processing framework for JAX
+accelerators (an NVIDIA GPU in production, the CPU in tests).
 
 A from-scratch rebuild of the capabilities of sj-shoff/ImageProcessor
 (an async Go microservice: HTTP upload -> queue -> worker -> object store)
-re-designed TPU-first:
+re-designed accelerator-first:
 
 * the per-image, per-goroutine CPU pixel loop of the reference
   (reference: internal/worker/worker.go:112-148,
   internal/usecase/processor/image_processor.go:39-102) becomes a batched,
-  resolution-bucketed JAX/XLA/Pallas device pipeline;
+  resolution-bucketed JAX/XLA device pipeline;
 * host work (JPEG/PNG codec, queue/storage I/O) is pipelined around the
   device step with thread pools and double buffering;
-* multi-chip scale-out is expressed with `jax.sharding.Mesh` + `pjit`
+* multi-card scale-out is expressed with `jax.sharding.Mesh` + `shard_map`
   over the batch (data) axis — no collectives are semantically required
   because images are independent.
 

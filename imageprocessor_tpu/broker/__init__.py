@@ -19,7 +19,7 @@ Backends:
   wire-compatible in-process single-node broker for tests/dev.
 
 The consume surface is deliberately batch-oriented (`poll(max_n)`) because
-the TPU engine wants micro-batches, not a per-message channel.
+the device engine wants micro-batches, not a per-message channel.
 """
 
 from imageprocessor_tpu.broker.base import Broker, BrokerMessage, build_broker

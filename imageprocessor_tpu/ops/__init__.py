@@ -1,6 +1,6 @@
 """On-device image operations (JAX/XLA/Pallas).
 
-This package is the TPU replacement for the reference's pure-Go pixel layer
+This package is the device replacement for the reference's pure-Go pixel layer
 (reference: internal/usecase/processor/operations/{resize,thumbnail,watermark}.go).
 Every op is a pure function over arrays; shapes are static per call so XLA
 compiles one program per (bucket, plan) pair. Two API levels:

@@ -115,16 +115,6 @@ def batched_grayscale(imgs_u8):
     return grayscale_image(imgs_u8)
 
 
-@jax.jit
-def batched_grayscale_planar(imgs_chw_u8):
-    """Planar (B, 3, H, W) luma — same Go arithmetic, channel axis leading
-    so the elementwise pass runs at full lane utilization."""
-    x = imgs_chw_u8.astype(jnp.float32) * 257.0
-    y16 = (299.0 * x[:, 0] + 587.0 * x[:, 1] + 114.0 * x[:, 2] + 500.0) / 1000.0
-    y8 = jnp.clip(jnp.floor(y16) // 256, 0, 255).astype(jnp.uint8)
-    return jnp.broadcast_to(y8[:, None], imgs_chw_u8.shape)
-
-
 @functools.partial(jax.jit, static_argnames=("direction",))
 def batched_flip(imgs_u8, src_hw, direction: str = "horizontal"):
     """Per-image mirror inside a padded bucket.
@@ -240,5 +230,5 @@ def _batched_rotate_arbitrary(imgs_u8, src_hw, angle_deg: float):
 
 
 __all__ = ["crop_image", "rotate_image", "flip_image", "grayscale_image",
-           "batched_grayscale", "batched_grayscale_planar", "batched_flip",
+           "batched_grayscale", "batched_flip",
            "batched_crop", "batched_rotate", "quantize_go_xdraw"]

@@ -1,13 +1,15 @@
-"""TPU-side JPEG decode: dequant + iDCT + upsample + color convert.
+"""Device-side JPEG decode: dequant + iDCT + upsample + color convert.
 
 The host keeps only the sequential Huffman pass
 (nativecodec.read_jpeg_coefficients, ~1/3 of a full libjpeg decode);
 everything dense runs here:
 
 * dequantization — elementwise multiply by the quant table;
-* 8x8 inverse DCT — two tiny matmuls per block, batched over all blocks
-  (einsum over a (nblocks, 8, 8) tensor: MXU territory, exactly the shape
-  systolic arrays love);
+* 8x8 inverse DCT — two 8-point contractions per block, batched over all
+  blocks; each einsum runs at Precision.HIGHEST, because a default f32
+  matmul may run in reduced precision (TF32 on the GPU) and the decode
+  has no room for that at coefficient magnitudes (PERF.md: writing the
+  contractions as fused scaled adds instead measured no faster);
 * chroma upsampling — libjpeg's "fancy" triangular filter for 2x factors
   (matching the host-side native decoder this path substitutes for, and
   libjpeg-turbo in production; Go's image/jpeg replicates instead, so
@@ -47,9 +49,9 @@ def _idct_plane(coefs_i16, qtab_f32, bh: int, bw: int):
     x = coefs_i16.astype(jnp.float32).reshape(bh, 8, bw, 8)
     x = x * qtab_f32[None, :, None, :].reshape(1, 8, 1, 8)
     # Pixel-sourced streams keep |dequantized coef| <= 255*8 + q/2 ~
-    # 2168; the clamp only bites adversarial synthetic canvases and
-    # keeps this program within 1 LSB of the Pallas kernel's bf16x3
-    # transform dots on any input (ops/pallas_jpeg.DEQUANT_CLAMP).
+    # 2168; the clamp only bites adversarial synthetic canvases, and the
+    # host decode in runtime/splice.py applies the same one, so the two
+    # decodes agree on any input.
     x = jnp.clip(x, -4096.0, 4096.0)
     x = x.transpose(0, 2, 1, 3).reshape(bh * bw, 8, 8)
     # spatial = D^T @ X @ D
@@ -104,11 +106,8 @@ def _decode_ycbcr(y_c, cb_c, cr_c, qt, shapes, sampling, out_h: int,
     cr = _idct_plane(cr_c, qt[2], crh, crw)
     # libjpeg range-limits IDCT samples to [0, 255] BEFORE upsampling
     # (jidctint's range_limit table); matching it here bounds the
-    # upsample operands — real (pixel-sourced) streams are unaffected,
-    # and adversarial coefficient streams stay within 1 LSB of the
-    # Pallas kernel, whose upsample matmuls run at bf16 operand
-    # precision (ops/pallas_jpeg.UPSAMPLE_PRECISION). Applied only when
-    # an upsample runs, like the batched program and the kernel.
+    # upsample operands — real (pixel-sourced) streams are unaffected.
+    # Applied only when an upsample runs, like the batched program.
     if (vy, hy) != (vc, hc):
         cb = jnp.clip(cb, 0.0, 255.0)
     if (vy, hy) != (vr, hr):
@@ -131,27 +130,21 @@ def _idct_planes_batched(coefs_i16, qtabs_f32):
     tables -> float32 samples (level-shifted +128). Zero-padded blocks
     decode to flat 128-gray, which stays inside the cropped region.
 
-    Layout-preserving formulation: both 8-point transforms contract an
-    axis carved out of the plane IN PLACE ((B, bh, 8, W) then
-    (B, H, bw, 8)) — no per-block gather/transpose ever materializes.
-    The earlier (b, bh*bw, 8, 8) block-gather form cost 24 ms per
-    8x12 MP luma pass on v5e (lane-granularity shuffles); this one runs
-    the same math in ~7.5 ms (tools probe, round 3)."""
+    Layout-preserving: both 8-point transforms contract an axis carved
+    out of the plane in place ((B, bh, 8, W) then (B, H, bw, 8)) — no
+    per-block gather/transpose ever materializes."""
     b, hh, ww = coefs_i16.shape
     bh, bw = hh // 8, ww // 8
     d = jnp.asarray(_idct_basis())
     x = coefs_i16.astype(jnp.float32).reshape(b, bh, 8, bw, 8)
     x = x * qtabs_f32[:, None, :, None, :]
-    # dequant clamp — see _idct_plane (no-op for pixel-sourced streams)
-    x = jnp.clip(x, -4096.0, 4096.0)
+    x = jnp.clip(x, -4096.0, 4096.0)  # see _idct_plane
     # vertical: spatial_i = sum_k D[k, i] * coef[k, .]
-    x = x.reshape(b, bh, 8, ww)
-    x = jnp.einsum("ki,bhkw->bhiw", d, x,
+    x = jnp.einsum("ki,bhkw->bhiw", d, x.reshape(b, bh, 8, ww),
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
     # horizontal: spatial_j = sum_l coef[., l] * D[l, j]
-    x = x.reshape(b, hh, bw, 8)
-    x = jnp.einsum("bhwl,lj->bhwj", x, d,
+    x = jnp.einsum("bhwl,lj->bhwj", x.reshape(b, hh, bw, 8), d,
                    preferred_element_type=jnp.float32,
                    precision=jax.lax.Precision.HIGHEST)
     return x.reshape(b, hh, ww) + 128.0
@@ -177,7 +170,7 @@ def _clamp_extent(plane, valid_hw):
 def batched_decode_ycbcr(yc, cbc, crc, qtabs, chroma_valid,
                          fh: int = 2, fw: int = 2,
                          out_h: int | None = None, out_w: int | None = None):
-    """Batched TPU-side baseline YCbCr decode into a planar bucket.
+    """Batched device-side baseline YCbCr decode into an RGB bucket.
 
     fh/fw: chroma upsample factors (luma/chroma sampling ratio) —
     (2, 2) = 4:2:0, (1, 2) = 4:2:2, (2, 1) = 4:4:0, (1, 1) = 4:4:4.
@@ -188,10 +181,10 @@ def batched_decode_ycbcr(yc, cbc, crc, qtabs, chroma_valid,
     padded); cbc/crc: (B, Hb/fh, Wb/fw); qtabs: (B, 3, 8, 8) float32;
     chroma_valid: (B, 2) int32 — each image's own chroma plane dims
     (its MCU grid / factor), the clamp boundary for the upsample taps.
-    Returns planar (B, 3, Hb, Wb) uint8 — the exact canvas the engine's
-    CHW pipeline consumes, so the dense half of every JPEG decode (IDCT,
-    fancy chroma upsample, color convert) runs on the MXU/VPU and the
-    host keeps only the streaming entropy scan.
+    Returns (B, Hb, Wb, 3) uint8 — the canvas the engine's pipeline
+    consumes, so the dense half of every JPEG decode (IDCT, fancy chroma
+    upsample, color convert) runs on the device and the host keeps only
+    the streaming entropy scan.
     """
     y = _idct_planes_batched(yc, qtabs[:, 0])
     cb = _idct_planes_batched(cbc, qtabs[:, 1])
@@ -202,8 +195,7 @@ def batched_decode_ycbcr(yc, cbc, crc, qtabs, chroma_valid,
         cb = _clamp_extent(cb, chroma_valid)
         cr = _clamp_extent(cr, chroma_valid)
         # libjpeg range-limits IDCT samples before upsampling; see
-        # _decode_ycbcr. Keeps bf16 upsample operands bounded in the
-        # Pallas kernel this program is the oracle for.
+        # _decode_ycbcr.
         cb = jnp.clip(cb, 0.0, 255.0)
         cr = jnp.clip(cr, 0.0, 255.0)
     # libjpeg fancy (triangular) 2x upsample; batched planes use
@@ -219,9 +211,9 @@ def batched_decode_ycbcr(yc, cbc, crc, qtabs, chroma_valid,
     r = y + 1.402 * cr
     g = y - 0.344136 * cb - 0.714136 * cr
     bch = y + 1.772 * cb
-    rgb = jnp.stack([r, g, bch], axis=1)  # (B, 3, H, W)
+    rgb = jnp.stack([r, g, bch], axis=-1)  # (B, H, W, 3)
     if out_h is not None or out_w is not None:
-        rgb = rgb[:, :, :out_h, :out_w]
+        rgb = rgb[:, :out_h, :out_w]
     return jnp.clip(jnp.round(rgb), 0, 255).astype(jnp.uint8)
 
 
@@ -232,7 +224,7 @@ def batched_decode_ycbcr420(yc, cbc, crc, qtabs, chroma_valid):
 
 
 def decode_jpeg_device(data: bytes, pad_hw: tuple[int, int] | None = None):
-    """Full TPU-side decode of one baseline JPEG: host entropy pass +
+    """Full device-side decode of one baseline JPEG: host entropy pass +
     device math. Returns planar (3, H, W) uint8 (padded if pad_hw given).
 
     Grayscale JPEGs replicate luma across channels.

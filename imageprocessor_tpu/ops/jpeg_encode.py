@@ -1,4 +1,4 @@
-"""TPU-side JPEG encode: color convert + downsample + FDCT + quantize.
+"""Device-side JPEG encode: color convert + downsample + FDCT + quantize.
 
 Mirror of ops/jpeg_decode.py. The host keeps only the sequential
 Huffman pass (nativecodec.emit_jpeg_from_coefficients, Annex K tables);
@@ -8,8 +8,8 @@ everything dense runs on device:
   reference encode: internal/usecase/image_processor.go writes q85 JPEG
   via Go's image/jpeg);
 * 4:2:0 chroma downsampling — 2x2 box mean;
-* forward 8x8 DCT — two tiny matmuls per block batched over all blocks
-  (einsum over (nblocks, 8, 8): MXU-shaped);
+* forward 8x8 DCT — two 8-point contractions per block batched over all
+  blocks, at Precision.HIGHEST (see ops/jpeg_decode.py);
 * quantization — elementwise divide + round against the quality-scaled
   Annex K tables, clamped to the baseline coefficient range.
 
@@ -62,34 +62,6 @@ def quality_qtables(quality: int) -> np.ndarray:
     return out
 
 
-def _fdct_basis_and_precision():
-    """FDCT basis + einsum precision mirroring the Pallas encode
-    kernel's ENCODE_TRANSFORM_MODE, so the XLA program (the engine's
-    fallback and the kernel's parity oracle) computes the SAME
-    transform:
-
-    - bf16x2: the basis rounds to bf16 once; the data operand stays
-      full-precision (HIGHEST). This equals the kernel's dropped-
-      basis-lo split exactly (up to summation-order ties), INCLUDING
-      the chroma path: the kernel folds the 2x box downsample into its
-      basis before rounding, but folding is a pure 0.5 scaling +
-      duplication of entries and scaling by 0.5 is exponent-exact in
-      bf16, so rounding commutes with the fold.
-    - default: 1-pass bf16 einsum (both operands rounded), like the
-      kernel's single DEFAULT dot.
-    - bf16x3 / highest: exact basis at HIGHEST (the split modes differ
-      from full f32 by <=2^-16 relative — below quantizer resolution).
-    """
-    from imageprocessor_tpu.ops.pallas_jpeg import ENCODE_TRANSFORM_MODE
-    d = jnp.asarray(_idct_basis())
-    if ENCODE_TRANSFORM_MODE == "bf16x2":
-        return (d.astype(jnp.bfloat16).astype(jnp.float32),
-                jax.lax.Precision.HIGHEST)
-    if ENCODE_TRANSFORM_MODE == "default":
-        return d, jax.lax.Precision.DEFAULT
-    return d, jax.lax.Precision.HIGHEST
-
-
 @functools.partial(jax.jit, static_argnames=("bh", "bw"))
 def _fdct_quantize(plane_f32, qtab_f32, bh: int, bw: int):
     """(bh*8, bw*8) float32 samples -> int16 quantized coefficients.
@@ -98,13 +70,13 @@ def _fdct_quantize(plane_f32, qtab_f32, bh: int, bw: int):
     with the decoder (jpeg_decode._idct_basis), divided by the quant
     table with round-to-nearest, clamped to the baseline range.
     """
-    d, prec = _fdct_basis_and_precision()
+    d = jnp.asarray(_idct_basis())
     x = plane_f32.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
     x = x.reshape(bh * bw, 8, 8) - 128.0
     c = jnp.einsum("ki,bij->bkj", d, x, preferred_element_type=jnp.float32,
-                   precision=prec)
+                   precision=jax.lax.Precision.HIGHEST)
     c = jnp.einsum("bkj,lj->bkl", c, d, preferred_element_type=jnp.float32,
-                   precision=prec)
+                   precision=jax.lax.Precision.HIGHEST)
     c = c / qtab_f32[None, :, :]
     c = jnp.clip(jnp.round(c), -1023, 1023).astype(jnp.int16)
     return c.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(
@@ -161,20 +133,18 @@ def _fdct_quantize_batched(planes_f32, qtab_f32):
 
     Layout-preserving formulation (see jpeg_decode._idct_planes_batched):
     both 8-point transforms contract an in-place axis, never gathering
-    8x8 blocks — ~3x faster than the block-gather form on v5e."""
+    8x8 blocks."""
     b, hh, ww = planes_f32.shape
     bh, bw = hh // 8, ww // 8
-    d, prec = _fdct_basis_and_precision()
+    d = jnp.asarray(_idct_basis())
     # vertical: coef_k = sum_i D[k, i] * x[i, .]
-    x = planes_f32.reshape(b, bh, 8, ww) - 128.0
-    x = jnp.einsum("ki,bhiw->bhkw", d, x,
-                   preferred_element_type=jnp.float32,
-                   precision=prec)
+    x = jnp.einsum("ki,bhiw->bhkw", d, planes_f32.reshape(b, bh, 8, ww)
+                   - 128.0, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
     # horizontal: coef_l = sum_j x[., j] * D[l, j]
-    x = x.reshape(b, hh, bw, 8)
-    x = jnp.einsum("bhwj,lj->bhwl", x, d,
+    x = jnp.einsum("bhwj,lj->bhwl", x.reshape(b, hh, bw, 8), d,
                    preferred_element_type=jnp.float32,
-                   precision=prec)
+                   precision=jax.lax.Precision.HIGHEST)
     c = x.reshape(b, bh, 8, bw, 8) / qtab_f32[None, None, :, None, :]
     c = jnp.clip(jnp.round(c), -1023, 1023).astype(jnp.int16)
     return c.reshape(b, hh, ww)
@@ -189,19 +159,19 @@ _replicate_edges = _clamp_extent
 
 @jax.jit
 def batched_encode_420(rgb_u8, valid_hw, qt_f32):
-    """Batched TPU-side 4:2:0 JPEG encode front half.
+    """Batched device-side 4:2:0 JPEG encode front half.
 
-    rgb_u8: planar (B, 3, H, W) uint8 bucket canvases (H, W multiples of
-    16); valid_hw: (B, 2) per-image valid dims (edges replicate from
+    rgb_u8: (B, H, W, 3) uint8 bucket canvases (H, W multiples of 16);
+    valid_hw: (B, 2) per-image valid dims (edges replicate from
     there); qt_f32: (2, 8, 8) luma/chroma quant tables. Returns int16
     coefficient canvases (yc (B,H,W), cbc (B,H/2,W/2), crc) ready for
     the host entropy emitter — the engine's full-size JPEG outputs keep
-    only the 29 ms/12 MP Huffman pass on host (vs a 45 ms full encode).
+    only the Huffman pass on host.
     """
     x = rgb_u8.astype(jnp.float32)
-    r = _replicate_edges(x[:, 0], valid_hw)
-    g = _replicate_edges(x[:, 1], valid_hw)
-    b = _replicate_edges(x[:, 2], valid_hw)
+    r = _replicate_edges(x[..., 0], valid_hw)
+    g = _replicate_edges(x[..., 1], valid_hw)
+    b = _replicate_edges(x[..., 2], valid_hw)
     y = 0.299 * r + 0.587 * g + 0.114 * b
     cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0
     cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0
@@ -218,7 +188,7 @@ def batched_encode_420(rgb_u8, valid_hw, qt_f32):
 
 def encode_jpeg_device(rgb_planar_u8, quality: int = 85,
                        subsampling: str = "420") -> bytes:
-    """Full TPU-side encode of one baseline JPEG: device math + host
+    """Full device-side encode of one baseline JPEG: device math + host
     entropy pass. Input is planar (3, H, W) uint8 RGB."""
     from imageprocessor_tpu.runtime import nativecodec
 

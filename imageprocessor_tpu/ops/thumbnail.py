@@ -23,6 +23,7 @@ from imageprocessor_tpu.ops.coords import (
 from imageprocessor_tpu.ops.resize import (
     _lerp_axis_cols,
     _lerp_axis_rows,
+    gather_lerp,
     resize_bilinear_u8,
 )
 
@@ -53,15 +54,31 @@ def thumbnail_image(img_u8, size: int, crop_to_fit: bool = False):
     return resize_bilinear_u8(img_u8, max(out_h, 1), max(out_w, 1))
 
 
+def _crop_coords(size: int, side, origin, cap: int):
+    """Gather indices for one axis of a centered square crop resampled to
+    `size`: src = (d + .5) * side/size - .5 + origin, clamped to the crop
+    window (not the image), then to the canvas."""
+    dst = jnp.arange(size, dtype=jnp.float32)[None, :]
+    scale = side.astype(jnp.float32)[:, None] / float(size)
+    src = (dst + 0.5) * scale - 0.5
+    src = jnp.clip(src, 0.0, side.astype(jnp.float32)[:, None] - 1.0)
+    src = src + origin.astype(jnp.float32)[:, None]
+    i0 = jnp.floor(src).astype(jnp.int32)
+    i1 = jnp.minimum(i0 + 1, (origin + side - 1)[:, None])
+    i0 = jnp.minimum(i0, cap - 1)
+    i1 = jnp.minimum(i1, cap - 1)
+    return i0, i1, src - i0.astype(jnp.float32)
+
+
 @functools.partial(jax.jit, static_argnames=("size",))
 def batched_thumbnail(imgs_u8, src_hw, size: int):
-    """Batched crop-to-fit / aspect thumbnails over a padded bucket.
+    """Batched crop-to-fit thumbnails over a padded bucket.
 
-    imgs_u8: (B, Hp, Wp, C) uint8; src_hw: (B, 2) valid (h, w).
-    Always produces a (B, size, size, C) canvas. For crop-to-fit (the
-    service default, handler/image/image.go:224-231) the full canvas is
-    valid. Aspect-mode images are produced by `batched_resize_bilinear`
-    with out_hw=thumbnail dims instead (engine dispatches there), so this
+    imgs_u8: (B, Hp, Wp, C) uint8; src_hw: (B, 2) valid (h, w). Always
+    produces a (B, size, size, C) canvas. For crop-to-fit (the service
+    default, handler/image/image.go:224-231) the full canvas is valid.
+    Aspect-mode images are produced by `batched_resize_bilinear` with
+    out_hw=thumbnail dims instead (engine dispatches there), so this
     kernel only implements the square crop path.
     """
     h = src_hw[:, 0]
@@ -69,34 +86,8 @@ def batched_thumbnail(imgs_u8, src_hw, size: int):
     side = jnp.minimum(h, w)                                     # (B,)
     crop_x = jnp.where(w > h, (w - h) // 2, 0)
     crop_y = jnp.where(w > h, 0, (h - w) // 2)
-
-    # Row coords: src = (d + .5) * side/size - .5 + crop_y, clamped to crop.
-    # Gathers run on uint8 (4x less HBM traffic); casts follow the gather.
-    dst = jnp.arange(size, dtype=jnp.float32)[None, :]
-    scale = side.astype(jnp.float32)[:, None] / float(size)
-    src_r = (dst + 0.5) * scale - 0.5
-    src_r = jnp.clip(src_r, 0.0, side.astype(jnp.float32)[:, None] - 1.0)
-    src_r = src_r + crop_y.astype(jnp.float32)[:, None]
-    ri0 = jnp.floor(src_r).astype(jnp.int32)
-    ri1 = jnp.minimum(ri0 + 1, (crop_y + side - 1)[:, None])
-    ri0 = jnp.minimum(ri0, imgs_u8.shape[1] - 1)
-    ri1 = jnp.minimum(ri1, imgs_u8.shape[1] - 1)
-    rf = src_r - ri0.astype(jnp.float32)
-    top = jnp.take_along_axis(imgs_u8, ri0[:, :, None, None], axis=1,
-                              mode='promise_in_bounds').astype(jnp.float32)
-    bot = jnp.take_along_axis(imgs_u8, ri1[:, :, None, None], axis=1,
-                              mode='promise_in_bounds').astype(jnp.float32)
-    x = top + (bot - top) * rf[:, :, None, None]
-
-    src_c = (dst + 0.5) * scale - 0.5
-    src_c = jnp.clip(src_c, 0.0, side.astype(jnp.float32)[:, None] - 1.0)
-    src_c = src_c + crop_x.astype(jnp.float32)[:, None]
-    ci0 = jnp.floor(src_c).astype(jnp.int32)
-    ci1 = jnp.minimum(ci0 + 1, (crop_x + side - 1)[:, None])
-    ci0 = jnp.minimum(ci0, imgs_u8.shape[2] - 1)
-    ci1 = jnp.minimum(ci1, imgs_u8.shape[2] - 1)
-    cf = src_c - ci0.astype(jnp.float32)
-    left = jnp.take_along_axis(x, ci0[:, None, :, None], axis=2, mode='promise_in_bounds')
-    right = jnp.take_along_axis(x, ci1[:, None, :, None], axis=2, mode='promise_in_bounds')
-    x = left + (right - left) * cf[:, None, :, None]
+    ri0, ri1, rf = _crop_coords(size, side, crop_y, imgs_u8.shape[1])
+    x = gather_lerp(imgs_u8, ri0, ri1, rf, 1)
+    ci0, ci1, cf = _crop_coords(size, side, crop_x, imgs_u8.shape[2])
+    x = gather_lerp(x, ci0, ci1, cf, 2)
     return quantize_go_xdraw(x)

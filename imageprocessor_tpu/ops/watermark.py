@@ -5,7 +5,7 @@ text string directly onto an RGBA copy of the image at one of seven anchor
 positions with a 20 px margin, color (R,G,B) at alpha = opacity*255,
 DPI 72, default font size 36, text box height = fontSize*1.2.
 
-TPU design: rasterizing vector glyphs is branchy scalar work that belongs
+Device design: rasterizing vector glyphs is branchy scalar work that belongs
 on the host — but it only depends on (text, font, size), NOT on the image.
 So the coverage mask is rendered once per distinct watermark spec, cached,
 and shipped to the device as a small uint8 tile; the per-image work on
@@ -74,11 +74,11 @@ def _default_font_path() -> str:
 
     1. IMAGEPROCESSOR_FONT env var,
     2. a Go-Regular TTF dropped into assets/fonts/ (the reference embeds
-       Go-Regular, watermark.go:29-38; its libre license permits bundling,
-       but this build environment has no copy and no egress to fetch one —
+       Go-Regular, watermark.go:29-38; the repository ships no copy —
        deployments wanting glyph-exact parity with Go outputs copy
        Go-Regular.ttf there and every render picks it up),
-    3. DejaVu Sans (metrically similar humanist sans) as fallback.
+    3. DejaVu Sans (metrically similar humanist sans), shipped in
+       assets/fonts/ with its license, as fallback.
     """
     global _DEFAULT_FONT_PATH
     if _DEFAULT_FONT_PATH is None:
@@ -88,15 +88,13 @@ def _default_font_path() -> str:
             _DEFAULT_FONT_PATH = env
         else:
             here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-            for name in ("Go-Regular.ttf", "GoRegular.ttf", "goregular.ttf"):
-                cand = os.path.join(here, "assets", "fonts", name)
+            fonts = os.path.join(here, "assets", "fonts")
+            for name in ("Go-Regular.ttf", "GoRegular.ttf", "goregular.ttf",
+                         "DejaVuSans.ttf"):
+                cand = os.path.join(fonts, name)
                 if os.path.exists(cand):
                     _DEFAULT_FONT_PATH = cand
                     break
-            else:
-                import matplotlib
-                _DEFAULT_FONT_PATH = (
-                    matplotlib.get_data_path() + "/fonts/ttf/DejaVuSans.ttf")
     return _DEFAULT_FONT_PATH
 
 
@@ -300,51 +298,6 @@ def _anchor_traced(position: str, img_w, img_h, width_px, height_px):
     if pos is WatermarkPosition.CENTER:
         return (img_w - width_px) // 2, (img_h + height_px) // 2
     return img_w - width_px - m, img_h - m
-
-
-@functools.partial(jax.jit, static_argnames=("tile_h", "tile_w"))
-def _blend_at_planar(img_chw_u8, padded_tile, color_rgb, alpha, x0, y0,
-                     valid_w, valid_h, tile_h: int, tile_w: int):
-    """Planar (C, H, W) variant of _blend_at — same clipping semantics."""
-    c, h, w = img_chw_u8.shape
-    win_h, win_w = min(tile_h, h), min(tile_w, w)
-    dx = jnp.clip(x0, 0, w - win_w)
-    dy = jnp.clip(y0, 0, h - win_h)
-    tx = jnp.clip(dx - x0 + tile_w, 0, 3 * tile_w - win_w)
-    ty = jnp.clip(dy - y0 + tile_h, 0, 3 * tile_h - win_h)
-
-    cov = jax.lax.dynamic_slice(padded_tile, (ty, tx), (win_h, win_w))
-    rows = dy + jnp.arange(win_h, dtype=jnp.int32)[:, None]
-    cols = dx + jnp.arange(win_w, dtype=jnp.int32)[None, :]
-    inside = ((rows < valid_h) & (cols < valid_w)).astype(jnp.float32)
-    m = (cov * inside * alpha)[None, :, :]
-
-    region = jax.lax.dynamic_slice(img_chw_u8, (0, dy, dx),
-                                   (c, win_h, win_w))
-    blended = (region.astype(jnp.float32) * (1.0 - m)
-               + color_rgb[:, None, None] * m)
-    blended_u8 = jnp.clip(jnp.round(blended), 0, 255).astype(jnp.uint8)
-    return jax.lax.dynamic_update_slice(img_chw_u8, blended_u8, (0, dy, dx))
-
-
-def batched_watermark_core_planar(imgs_chw_u8, src_hw, padded_tile,
-                                  color_rgb, alpha, width_px, height_px,
-                                  ascent, *, position: str, tile_h: int,
-                                  tile_w: int):
-    """Planar (B, C, H, W) watermark blend — identical anchor/clip math to
-    the HWC core; used by the planar production pipeline."""
-    w = src_hw[:, 1].astype(jnp.int32)
-    h = src_hw[:, 0].astype(jnp.int32)
-    bx, by = _anchor_traced(position, w, h,
-                            jnp.int32(width_px), jnp.int32(height_px))
-    x0 = bx.astype(jnp.int32)
-    y0 = (by - ascent).astype(jnp.int32)
-
-    def one(img, x, y, h_w):
-        return _blend_at_planar(img, padded_tile, color_rgb, alpha, x, y,
-                                h_w[1], h_w[0], tile_h, tile_w)
-
-    return jax.vmap(one)(imgs_chw_u8, x0, y0, src_hw.astype(jnp.int32))
 
 
 def batched_watermark_core(imgs_u8, src_hw, padded_tile, color_rgb, alpha,

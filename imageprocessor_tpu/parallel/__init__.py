@@ -1,14 +1,14 @@
-"""Multi-chip scale-out via jax.sharding.
+"""Multi-card scale-out via jax.sharding.
 
 The workload is embarrassingly parallel over images (SURVEY.md §2
 parallelism table), so the primary axis is `data` (batch). A secondary
 `space` axis shards the image width for very large frames — the spatial
 analogue of sequence parallelism: the vertical resample pass is local,
 the horizontal pass gathers across width shards (XLA inserts the
-all-gather over ICI automatically from the sharding annotations).
+all-gather automatically from the sharding annotations).
 
 Cross-host distribution stays on the queue (one consumer-group member per
-TPU host), exactly like the reference scales workers horizontally over
+worker host), exactly like the reference scales workers horizontally over
 Kafka partitions (consumer.go:23, Makefile:24) — no DCN collectives are
 semantically required.
 """

@@ -1,6 +1,6 @@
 """Host-side runtime: codecs, bucketing/batching, and the device engine.
 
-This is the TPU-native replacement for the reference's worker internals
+This is the accelerator-side replacement for the reference's worker internals
 (reference: internal/worker/worker.go, internal/usecase/processor/): decode
 and encode stay on the host (libjpeg-turbo via OpenCV, GIL-released, thread
 pooled); everything between them runs as batched XLA programs.

@@ -71,10 +71,9 @@ def coef_canvas(bucket: tuple[int, int], fh: int, fw: int
 class BatchItem:
     """One decoded image waiting for device processing.
 
-    layout='hwc': image is (h, w, 3). layout='chw': image is (3, hb, wb)
-    already zero-padded to its resolution bucket (the native planar
-    decoder writes straight into the bucket canvas) and `valid_hw`
-    carries the true dims.
+    layout='hwc': image is (h, w, 3). layout='coef:<fh><fw>': image is
+    the (y, cb, cr, qtabs) coefficient planes of a JPEG the device will
+    decode, and `valid_hw` carries the true dims.
     """
 
     item_id: str               # task / image id, opaque to the batcher
@@ -111,8 +110,8 @@ class Group:
              ) -> tuple[np.ndarray, np.ndarray]:
         """Pad items into a batch canvas + (B, 2) valid dims.
 
-        hwc items -> (B, Hb, Wb, 3); chw items (already bucket-padded by
-        the planar decoder) -> (B, 3, Hb, Wb).
+        hwc items -> (B, Hb, Wb, 3); coef items -> the coefficient
+        canvases (yc, cbc, crc, qtabs, chroma extents).
         """
         hb, wb = self.bucket
         n = len(self.items)
@@ -144,17 +143,11 @@ class Group:
             for i in range(n, b):
                 src_hw[i] = src_hw[n - 1] if n else (1, 1)
             return (yc, cbc, crc, qt, cv), src_hw
-        if self.layout == "chw":
-            imgs = np.zeros((b, 3, hb, wb), dtype=np.uint8)
-            for i, it in enumerate(self.items):
-                imgs[i] = it.image
-                src_hw[i] = it.hw
-        else:
-            imgs = np.zeros((b, hb, wb, 3), dtype=np.uint8)
-            for i, it in enumerate(self.items):
-                h, w = it.hw
-                imgs[i, :h, :w] = it.image[:, :, :3]
-                src_hw[i] = (h, w)
+        imgs = np.zeros((b, hb, wb, 3), dtype=np.uint8)
+        for i, it in enumerate(self.items):
+            h, w = it.hw
+            imgs[i, :h, :w] = it.image[:, :, :3]
+            src_hw[i] = (h, w)
         # Duplicate the last real image into pad rows so the program never
         # sees (0,0) extents (harmless — pad outputs are discarded).
         for i in range(n, b):

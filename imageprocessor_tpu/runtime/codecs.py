@@ -1,6 +1,6 @@
 """Host image codecs and format negotiation.
 
-Decode/encode never run on the TPU — entropy coding is branchy scalar work.
+Decode/encode run on the host — entropy coding is branchy scalar work.
 They run on host threads via OpenCV (libjpeg-turbo with SIMD, releases the
 GIL) with PIL as the fallback for GIF and exotic formats.
 

@@ -1,6 +1,6 @@
 """The processing engine: decode -> bucketed device batches -> encode/save.
 
-TPU-native replacement for the reference's per-image worker hot loop
+Accelerator-side replacement for the reference's per-image worker hot loop
 (reference: internal/worker/worker.go:112-148 + internal/usecase/processor/
 image_processor.go:39-127). Differences that matter:
 
@@ -20,6 +20,7 @@ write the same metadata rows the reference writes (worker.go:202-214).
 
 from __future__ import annotations
 
+import functools
 import os
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -27,6 +28,7 @@ from dataclasses import dataclass, field
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
 
 from imageprocessor_tpu.domain import (
     DEFAULT_JPEG_QUALITY,
@@ -37,7 +39,6 @@ from imageprocessor_tpu.domain import (
 )
 from imageprocessor_tpu.errors import DecodeError, UnsupportedOperationError
 from imageprocessor_tpu.models.pipeline import (
-    _MAX_QUANT_SCALE,
     PipelineModel,
     plan_output_specs,
 )
@@ -63,7 +64,7 @@ from imageprocessor_tpu.runtime.batcher import (
     group_items,
     quantize_batch,
 )
-from imageprocessor_tpu.runtime import coeftx, nativecodec, splice
+from imageprocessor_tpu.runtime import coeftx, device, nativecodec, splice
 from imageprocessor_tpu.runtime.batcher import (
     bucket_for,
     coef_canvas,
@@ -95,24 +96,6 @@ log = get_logger("engine")
 # reference's leave-uncommitted-for-retry behavior, worker.go:125-146).
 PERMANENT = "permanent"
 TRANSIENT = "transient"
-
-# device_jpeg auto policy: hosts with at least this many USABLE cores
-# serve more JPEG throughput from the host codec pool than the chip-side
-# codec cap (see the policy comment in ProcessingEngine.__init__). The
-# ratio is scale-invariant in image size (both sides are linear in
-# pixels). Measured on v5e (round 4): the composed on-chip
-# decode->pipeline->encode step runs ~1483 12MP img/s PER CHIP with the
-# fused Pallas codec kernels (ops/pallas_jpeg; the ladder: ~90 XLA
-# codec halves -> 494 scalar-prefetch clamp -> 720 bf16 upsample split
-# -> 855 -> 1270 bf16x3 transform dots -> 1346 encode width tiling ->
-# 1483 bf16x2 encode FDCT) and a host core ~10 12MP img/s through the
-# full host codec, so the single-chip crossover is ~148 cores; the
-# default stays 127 as a deliberately conservative margin — and the
-# codec kernels shard over the engine mesh (_codec_sharded), so a
-# v5e-8 host's crossover is ~8x that.
-DEVICE_JPEG_CORE_THRESHOLD = int(os.environ.get(
-    "IMAGEPROCESSOR_DEVICE_JPEG_CORES", "127"))
-
 
 def usable_cores() -> int:
     """Cores this PROCESS may use: cgroup/affinity-aware (a container
@@ -149,63 +132,41 @@ class EngineResult:
 class ProcessingEngine:
     def __init__(self, object_store, *, codec_threads: int = 3,
                  batch_size: int = 32, jpeg_quality: int = DEFAULT_JPEG_QUALITY,
-                 use_pallas: bool | None = None,
-                 compute_dtype: str = "bfloat16",
                  device_jpeg: bool | None = None,
-                 pallas_interpret: bool = False,
                  data_axis: int | None = None,
                  space_axis: int = 1):
         self.store = object_store
-        # Multi-chip serving: ONE worker process drives every local chip
-        # (the TPU-native analog of the reference's goroutine pool,
-        # worker.go:88-96 — intra-host fan-out per SURVEY §2's
-        # parallelism table). data_axis 0/None = auto: all local devices
-        # on TPU backends, 1 elsewhere (CPU test environments opt in
-        # explicitly so the 8-virtual-device suite doesn't silently shard
-        # every test). space_axis > 1 additionally shards image WIDTH —
-        # the GSPMD jit path where XLA inserts the halo collectives over
-        # ICI — for buckets whose frames strain HBM; the Pallas kernels
-        # are full-width, so spatial sharding forces the XLA resample
-        # path (which those >6144-wide buckets use anyway).
+        # The one device decision (runtime/device.py): mesh size and the
+        # device-JPEG policy follow from the backend JAX came up on.
+        self.caps = device.detect()
+        # Multi-card serving: ONE worker process drives every local card
+        # (the analog of the reference's goroutine pool, worker.go:88-96 —
+        # intra-host fan-out per SURVEY §2's parallelism table).
+        # space_axis > 1 additionally shards image WIDTH — the GSPMD jit
+        # path where XLA inserts the halo collectives — for buckets whose
+        # frames strain device memory.
         space = max(1, int(space_axis or 1))
-        n_data = int(data_axis or 0)
-        if n_data == 0:
-            n_data = (len(jax.devices()) // space
-                      if jax.default_backend() == "tpu" else 1)
+        n_data = self.caps.data_axis(int(data_axis or 0), space)
         self._mesh = None
         self._mesh_spatial = space > 1
         if n_data * space > 1:
             from imageprocessor_tpu.parallel.mesh import make_mesh
             self._mesh = make_mesh(n_data * space, space=space)
-            if self._mesh_spatial:
-                use_pallas = False
             log.info("Device mesh active", data=n_data, space=space)
-        self.model = PipelineModel(use_pallas=use_pallas,
-                                   pallas_interpret=pallas_interpret,
-                                   resample_dtype=compute_dtype)
+        self.model = PipelineModel()
         # Clamp to the device-program cap: a WORKER_BATCH_SIZE above
         # MAX_BATCH would make group_items emit groups bigger than the
         # quantize_batch canvas -> IndexError in Group.pack for every
         # full batch.
         from imageprocessor_tpu.runtime.batcher import MAX_BATCH
         self.batch_size = max(1, min(batch_size, MAX_BATCH))
-        # TPU-side JPEG decode: host keeps only the streaming entropy
-        # scan; IDCT + chroma upsample + color convert run batched on
-        # device, and full-size JPEG outputs run the encode front half
-        # on device too. Eligible geometry takes the fused Pallas codec
-        # kernels (ops/pallas_jpeg: decode 2.1 ms, encode 3.40 ms per
-        # 8x12MP batch vs 38.5/108 ms XLA), putting the composed
-        # decode->pipeline->encode step at ~1483 12MP img/s per chip
-        # (round 4, bf16x2 encode FDCT; was ~90 with the XLA halves).
-        # The codec still trades CHIP time
-        # for HOST CPU (the fused pipeline step alone is 0.7 ms/batch),
-        # so it wins when the host cannot feed the chip: per core the
-        # host codec manages ~10 12MP img/s, so below the crossover
-        # (~148 cores/chip measured; default threshold 127, kept
-        # conservative) the device path serves
-        # more total throughput, above it the host pool does. Auto
-        # policy = native scanner present AND TPU backend AND a
-        # core-starved host; IMAGEPROCESSOR_DEVICE_JPEG=1/0 forces.
+        # Device-side JPEG codec: the host keeps only the streaming
+        # entropy scan and emit; IDCT + chroma upsample + color convert
+        # and the encode front half (color convert, downsample, FDCT,
+        # quantize) run batched on the card. It trades card time for
+        # host CPU, so the auto policy turns it on where the host cannot
+        # feed the card (device.DEVICE_JPEG_CORES_PER_CARD);
+        # IMAGEPROCESSOR_DEVICE_JPEG=1/0 forces it.
         if device_jpeg is None:
             env_flag = os.environ.get("IMAGEPROCESSOR_DEVICE_JPEG", "")
             if env_flag in ("1", "true", "yes"):
@@ -213,10 +174,9 @@ class ProcessingEngine:
             elif env_flag in ("0", "false", "no"):
                 device_jpeg = False
             else:
-                device_jpeg = (jax.default_backend() == "tpu"
-                               and nativecodec.available()
-                               and usable_cores()
-                               < DEVICE_JPEG_CORE_THRESHOLD)
+                device_jpeg = self.caps.device_jpeg_auto(
+                    nativecodec.available(), usable_cores(),
+                    n_data * space)
         self.device_jpeg = device_jpeg
         self.jpeg_quality = jpeg_quality
         self._pool = ThreadPoolExecutor(max_workers=max(codec_threads, 1),
@@ -231,22 +191,10 @@ class ProcessingEngine:
             error=error), error_kind=kind)
 
     def _encode_and_save(self, task: ProcessingTask, op: NormalizedOp,
-                         arr: np.ndarray, fmt: str,
-                         layout: str = "hwc") -> Artifact:
+                         arr: np.ndarray, fmt: str) -> Artifact:
         out_fmt = negotiate_format(fmt,
                                    watermark=op.type is OperationType.WATERMARK)
-        if layout == "chw":
-            if out_fmt == "jpeg" and nativecodec.available():
-                # Stride-aware planar encode: no host transpose, no copy.
-                data = nativecodec.encode_jpeg_planar(
-                    arr, width=arr.shape[2], height=arr.shape[1],
-                    quality=self.jpeg_quality)
-            else:
-                data = encode_image(np.ascontiguousarray(
-                    np.transpose(arr, (1, 2, 0))), out_fmt,
-                    quality=self.jpeg_quality)
-        else:
-            data = encode_image(arr, out_fmt, quality=self.jpeg_quality)
+        data = encode_image(arr, out_fmt, quality=self.jpeg_quality)
         path = generate_path(task.image_id, op, out_fmt)
         mime = mime_from_path(path)
         self._save(path, data, mime)
@@ -256,9 +204,9 @@ class ProcessingEngine:
     @staticmethod
     def _is_infra_failure(exc: Exception) -> bool:
         """Infra (retryable) vs compute/params (permanent): storage I/O,
-        OS-level errors (sockets, the device tunnel), and JAX/XLA runtime
+        OS-level errors (sockets, device transport), and JAX/XLA runtime
         errors are transient — the same policy the batched device stage
-        applies to a whole micro-batch (a TPU hiccup must nack for
+        applies to a whole micro-batch (a device hiccup must nack for
         redelivery, not permanently fail the image)."""
         from imageprocessor_tpu.errors import StorageError
         if isinstance(exc, (StorageError, OSError, TimeoutError)):
@@ -408,34 +356,6 @@ class ProcessingEngine:
 
     # ------------------------------------------------------------ batched path
 
-    @staticmethod
-    def _plan_scale_ok(plan: OperationPlan, h: int, w: int) -> bool:
-        """True when no resample op needs a downscale steeper than the
-        Pallas band geometry covers for an (h, w) image — the gate that
-        keeps extreme downscales (e.g. 12 MP -> 32x32) off the planar
-        layout, whose kernels would otherwise clamp band indices and
-        corrupt pixels; the XLA fallback lives on the HWC path."""
-        for op in plan.ops:
-            if op.type is OperationType.RESIZE:
-                if op.keep_aspect:
-                    tw, th = keep_aspect_dims(w, h, op.width, op.height)
-                else:
-                    tw, th = op.width, op.height
-            elif op.type is OperationType.THUMBNAIL:
-                if op.crop_to_fit:
-                    tw = th = op.size
-                    side = min(h, w)
-                    if side / max(tw, 1) > _MAX_QUANT_SCALE:
-                        return False
-                    continue
-                tw, th = thumbnail_dims(w, h, op.size)
-            else:
-                continue
-            if (h / max(th, 1) > _MAX_QUANT_SCALE
-                    or w / max(tw, 1) > _MAX_QUANT_SCALE):
-                return False
-        return True
-
     def decode_for_plan(self, data: bytes, plan: OperationPlan | None
                         ) -> tuple[np.ndarray, str, str, tuple | None]:
         """Back-compat 4-tuple wrapper over decode_for_plan_ex. The
@@ -456,9 +376,9 @@ class ProcessingEngine:
                                       object | None]:
         """Decode one blob, choosing the layout the device path wants.
 
-        Planar-eligible JPEG tasks decode straight into their padded CHW
-        bucket via the native codec (no device transpose, no host pack
-        copy); everything else decodes to HWC. Returns
+        With the device codec on, JPEG tasks stop at the entropy scan:
+        their coefficient canvases decode on the device, straight into
+        the pipeline program. Everything else decodes on host. Returns
         (array, detected_format, layout, valid_hw_or_None,
         splice_ctx_or_None) — the splice context is produced when the
         plan wants a watermark rendition and the stream is splice-
@@ -575,19 +495,15 @@ class ProcessingEngine:
                 w, h = sctx.size
                 return (np.empty((0, 0, 3), dtype=np.uint8), "jpeg",
                         "splice", (h, w), sctx)
-        if (is_jpeg and self.device_jpeg
-                and self.model.supports_planar(plan, (1, 1))):
+        if is_jpeg and self.device_jpeg:
             try:
                 if scanned is None:
                     scanned = nativecodec.scan_jpeg_coefficients(data)
                 planes, qt, (w, h), samp = scanned
-                bucket = bucket_for(h, w)
-                if (len(planes) == 3
-                        and self.model.supports_planar(plan, bucket)
-                        and self._plan_scale_ok(plan, h, w)):
+                if len(planes) == 3:
                     (hy, vy), (hc, vc), (hr, vr) = (tuple(s) for s in samp)
                     fh, fw = vy, hy
-                    ch, cw = coef_canvas(bucket, fh, fw)
+                    ch, cw = coef_canvas(bucket_for(h, w), fh, fw)
                     # Chroma must be unsubsampled relative to itself and
                     # the luma ratio one of the common modes: (2,2)=4:2:0,
                     # (1,2)=4:2:2, (2,1)=4:4:0, (1,1)=4:4:4. Canvases are
@@ -605,20 +521,6 @@ class ProcessingEngine:
                                 "jpeg", coef_layout(fh, fw), (h, w), sctx)
             except nativecodec.NativeCodecError:
                 pass  # exotic/truncated: fall through
-        if (is_jpeg and self.model.supports_planar(plan, (1, 1))):
-            try:
-                w, h, _c = nativecodec.probe_jpeg(data)
-                bucket = bucket_for(h, w)
-                # full geometry gate (width budget + band-alignable
-                # height) + downscale cap
-                if (self.model.supports_planar(plan, bucket)
-                        and self._plan_scale_ok(plan, h, w)):
-                    arr = nativecodec.decode_jpeg_planar(data, pad_hw=bucket)
-                    # sctx rides along: mixed plans on pixel layouts
-                    # still splice the watermark at finish time.
-                    return arr, "jpeg", "chw", (h, w), sctx
-            except nativecodec.NativeCodecError:
-                pass  # fall through to the generic decoder
         arr, detected = decode_image(data)
         return arr, detected, "hwc", None, sctx
 
@@ -636,9 +538,8 @@ class ProcessingEngine:
         n = len(tasks_with_data)
         results: list[EngineResult | None] = [None] * n
 
-        # Plans first: planar-eligible JPEG tasks decode straight to their
-        # padded planar bucket (native codec), skipping both the device
-        # transpose and the host pack copy.
+        # Plans first: they decide how each blob decodes
+        # (decode_for_plan_ex).
         import time as _time
 
         plans: dict[int, OperationPlan] = {}
@@ -725,210 +626,54 @@ class ProcessingEngine:
             out.result.processed_paths[op.type.value] = artifact.path
         return out
 
-    def _decode_coefs(self, yc, cbc, crc, qt, cv, fh: int, fw: int,
-                      bucket: tuple[int, int], force_xla: bool = False):
-        """Coefficient canvases -> planar pixel canvas on device.
+    def _place(self, x):
+        """Host array -> device, batch-sharded over the data mesh when
+        there is one (each card receives only its own slice)."""
+        if self._mesh is None or self._mesh_spatial:
+            return jnp.asarray(x)
+        return jax.device_put(x, NamedSharding(self._mesh, P("data")))
 
-        Canvases in any of the four common subsampling modes (4:2:0 /
-        4:2:2 / 4:4:0 / 4:4:4) whose geometry fits the fused Pallas
-        decode (ops/pallas_jpeg: 5.0 ms vs 38.5 ms XLA per 8x12MP
-        4:2:0 batch on v5e, <=1 LSB apart) run the single-sweep
-        kernel; everything else uses the XLA program. Kernel index args
-        are host-built per (geometry, subsampling, quant, valid-extent)
-        and device-cached, so steady batches of same-quality uploads
-        transfer nothing."""
-        b, ch, cw = yc.shape
-        # blacklist is geometry-keyed (no batch size): Mosaic rejections
-        # are geometry-driven, and quantize_batch would otherwise pay
-        # one doomed multi-second compile per distinct batch size
-        bad_key = ("pjdec-bad", ch, cw, fh, fw)
-        blacklisted = self.model.arg_cache_get(bad_key) is not None
-        if (not blacklisted and not force_xla
-                and fh in (1, 2) and fw in (1, 2) and self.model.use_pallas
-                and ch % 16 == 0 and cw % 128 == 0 and cw >= 256
-                and (ch, cw) == (bucket[0], bucket[1])):
-            # A geometry the gate admits but Mosaic rejects (or any
-            # other kernel failure) must NOT fail the images: blacklist
-            # the geometry and fall through to the XLA decode program.
-            try:
-                return self._decode_coefs_pallas(yc, cbc, crc, qt, cv,
-                                                 fh, fw)
-            except Exception as exc:  # noqa: BLE001 — fallback barrier
-                log.warning("Pallas decode unavailable for geometry; "
-                            "using XLA decode", batch=b, h=ch, w=cw,
-                            fh=fh, fw=fw, error=str(exc))
-                self.model.arg_cache_put(bad_key, True, pin=True)
-        from imageprocessor_tpu.ops.jpeg_decode import batched_decode_ycbcr
-        return batched_decode_ycbcr(yc, cbc, crc, qt, cv, fh=fh, fw=fw,
-                                    out_h=bucket[0], out_w=bucket[1])
-
-    def _decode_coefs_pallas(self, yc, cbc, crc, qt, cv, fh: int, fw: int):
-        from imageprocessor_tpu.ops import pallas_jpeg as pj
-        b, ch, cw = yc.shape
-        qt_np = np.asarray(qt, dtype=np.float32)
-        cv_np = np.asarray(cv, dtype=np.int32)
-        key = ("pjdec", b, ch, cw, fh, fw, qt_np.tobytes(),
-               cv_np.tobytes())
-        cached = self.model.arg_cache_get(key)
-        if cached is None:
-            plan = pj.make_plan(b, ch, cw, fh, fw)
-            args = pj.make_args(plan, qt_np, cv_np)
-            cached = (plan, tuple(jnp.asarray(v) for v in (
-                args.win_starts, args.vrows0, args.vrows1,
-                args.hcols0, args.hcols1,
-                args.qty, args.qtcb, args.qtcr)))
-            self.model.arg_cache_put(key, cached)
-        plan, dargs = cached
-        (ws, vr0, vr1, hc0, hc1, qy, qcb, qcr) = dargs
-        # tile-pad chroma canvases (w=640/384-class buckets at fw=2)
-        cbc, crc = pj.pad_chroma(plan, cbc, crc)
-        fn = self._codec_sharded(pj, plan, "decode")
-        if fn is not None:
-            return fn(ws, jnp.asarray(yc), jnp.asarray(cbc),
-                      jnp.asarray(crc), qy, qcb, qcr, vr0, vr1,
-                      hc0, hc1)
-        call = pj._build_call(plan, self.model._pallas_interpret)
-        v8, v8c, h8, h8t = pj._bases(plan.band_rows, plan.win_rows)
-        return call(ws, jnp.asarray(yc), jnp.asarray(cbc),
-                    jnp.asarray(crc), v8, v8c, h8, h8t, qy, qcb, qcr,
-                    vr0, vr1, hc0, hc1)
-
-    def _encode_coefs(self, rgb, vh: np.ndarray, qt: np.ndarray,
-                      force_xla: bool = False):
-        """Planar pixel canvas -> quantized 4:2:0 coefficient canvases
-        on device (the encode front half; host keeps only entropy emit).
-
-        Eligible geometry (H%16==0, W%128==0, W>=256) takes the fused
-        Pallas encode sweep (ops/pallas_jpeg.encode_420: 5.2 ms vs
-        108 ms XLA per 8x12MP batch on v5e, bit-exact); everything else
-        runs the XLA program. Kernel index args are host-built per
-        (geometry, quality, valid-extents) and device-cached, like the
-        decode dispatch above."""
-        b, _c, mh, mw = rgb.shape
-        bad_key = ("pjenc-bad", mh, mw)   # geometry-keyed, like decode
-        blacklisted = self.model.arg_cache_get(bad_key) is not None
-        if (not blacklisted and not force_xla and self.model.use_pallas
-                and mh % 16 == 0 and mw % 128 == 0 and mw >= 256):
-            try:
-                return self._encode_coefs_pallas(rgb, vh, qt)
-            except Exception as exc:  # noqa: BLE001 — fallback barrier
-                log.warning("Pallas encode unavailable for geometry; "
-                            "using XLA encode", batch=b, h=mh, w=mw,
-                            error=str(exc))
-                self.model.arg_cache_put(bad_key, True, pin=True)
-        from imageprocessor_tpu.ops.jpeg_encode import batched_encode_420
-        return batched_encode_420(rgb, jnp.asarray(vh),
-                                  jnp.asarray(qt, dtype=jnp.float32))
-
-    def _encode_coefs_pallas(self, rgb, vh: np.ndarray, qt: np.ndarray):
-        from imageprocessor_tpu.ops import pallas_jpeg as pj
-        b, _c, mh, mw = rgb.shape
-        qt_np = np.asarray(qt, dtype=np.float32)
-        vh_np = np.asarray(vh, dtype=np.int32)
-        key = ("pjenc", b, mh, mw, qt_np.tobytes(), vh_np.tobytes())
-        cached = self.model.arg_cache_get(key)
-        if cached is None:
-            plan = pj.make_encode_plan(b, mh, mw)
-            args = pj.make_encode_args(plan, qt_np, vh_np)
-            cached = (plan, tuple(jnp.asarray(v) for v in (
-                args.valid, args.qy, args.qc)))
-            self.model.arg_cache_put(key, cached)
-        plan, (valid, qy, qc) = cached
-        fn = self._codec_sharded(pj, plan, "encode")
-        if fn is not None:
-            return fn(valid, jnp.asarray(rgb), qy, qc)
-        call = pj._build_encode_call(plan, self.model._pallas_interpret)
-        vy, vc, hy, hcm = pj._encode_bases(plan.band_rows)
-        return call(valid, jnp.asarray(rgb), vy, vc, hy, hcm, qy, qc)
-
-    def _codec_sharded(self, pj, plan, kind: str):
-        """Jitted shard_map wrapper running a Pallas codec kernel
-        data-parallel over the engine mesh, so the codec halves scale
-        across local chips exactly like the pixel pipeline
-        (PipelineModel.run_sharded). Returns None on single-chip
-        engines, spatial meshes (use_pallas is off there anyway), or
-        when the batch doesn't divide the data axis (device_group pads
-        to a multiple, so that's only defensive). Every per-image index
-        arg is batch-major, so uniform P('data') sharding lines the
-        local kernels up by construction; decode quant patterns are
-        per-image (sharded), encode quant patterns are shared
-        (replicated); the local kernel is the same pallas_call built
-        for batch // n_data."""
-        mesh = self._mesh
-        if mesh is None or self._mesh_spatial:
-            return None
-        n = int(mesh.shape["data"])
-        if n <= 1 or plan.batch % n:
-            return None
-        key = ("pjsh", kind, plan)
-        fn = self.model.prog_cache_get(key)
-        if fn is not None:
+    def _codec_program(self, key: tuple, fn, in_specs, out_specs):
+        """An XLA codec program, data-parallel under the engine mesh:
+        images are independent, so each card runs `fn` on its shard."""
+        if self._mesh is None or self._mesh_spatial:
             return fn
-        from dataclasses import replace
+        key = ("codec", self._mesh) + key
+        prog = self.model.prog_cache_get(key)
+        if prog is None:
+            prog = jax.jit(jax.shard_map(fn, mesh=self._mesh,
+                                         in_specs=in_specs,
+                                         out_specs=out_specs))
+            self.model.prog_cache_put(key, prog)
+        return prog
 
-        from jax.sharding import PartitionSpec as P
-        try:
-            from jax import shard_map
-        except ImportError:  # older jax
-            from jax.experimental.shard_map import shard_map
+    def _decode_coefs(self, yc, cbc, crc, qt, cv, fh: int, fw: int,
+                      bucket: tuple[int, int]):
+        """Coefficient canvases -> (B, H, W, 3) pixel canvas on device
+        (ops/jpeg_decode.batched_decode_ycbcr), in any of the four common
+        subsampling modes."""
+        from imageprocessor_tpu.ops.jpeg_decode import batched_decode_ycbcr
+        fn = functools.partial(batched_decode_ycbcr, fh=fh, fw=fw,
+                               out_h=bucket[0], out_w=bucket[1])
+        sh = P("data")
+        prog = self._codec_program(("decode", fh, fw, bucket), fn,
+                                   (sh,) * 5, sh)
+        return prog(*(self._place(a) for a in (yc, cbc, crc, qt, cv)))
 
-        lplan = replace(plan, batch=plan.batch // n)
-        interpret = self.model._pallas_interpret
-        sh, rp = P("data"), P()
-        if kind == "decode":
-            call = pj._build_call(lplan, interpret)
-            bases = pj._bases(plan.band_rows, plan.win_rows)
-
-            def local(ws, yc, cbc, crc, qy, qcb, qcr, v0, v1, h0, h1):
-                return call(ws, yc, cbc, crc, *bases, qy, qcb, qcr,
-                            v0, v1, h0, h1)
-
-            kw = {"mesh": mesh, "in_specs": (sh,) * 11, "out_specs": sh}
-        else:
-            call = pj._build_encode_call(lplan, interpret)
-            bases = pj._encode_bases(plan.band_rows)
-
-            def local(valid, rgb, qy, qc):
-                return tuple(call(valid, rgb, *bases, qy, qc))
-
-            # valid is (B*2,) batch-major, so P('data') splits it in
-            # lockstep with the pixel canvas
-            kw = {"mesh": mesh, "in_specs": (sh, sh, rp, rp),
-                  "out_specs": (sh, sh, sh)}
-        try:
-            wrapped = shard_map(local, check_vma=False, **kw)
-        except TypeError:  # older jax: the kwarg was check_rep
-            wrapped = shard_map(local, check_rep=False, **kw)
-        fn = jax.jit(wrapped)
-        self.model.prog_cache_put(key, fn)
-        return fn
+    def _encode_coefs(self, rgb, vh: np.ndarray, qt: np.ndarray):
+        """Pixel canvas -> quantized 4:2:0 coefficient canvases on device
+        (the encode front half; host keeps only entropy emit)."""
+        from imageprocessor_tpu.ops.jpeg_encode import batched_encode_420
+        sh = P("data")
+        prog = self._codec_program(("encode",), batched_encode_420,
+                                   (sh, sh, P()), (sh, sh, sh))
+        return prog(rgb, self._place(np.asarray(vh, dtype=np.int32)),
+                    jnp.asarray(qt, dtype=jnp.float32))
 
     def device_group(self, group):
         """Stage 2: run one packed group's fused program; returns the
         host-side outputs + geometry needed to finish each image.
-        Reusable by both the batch worker and the pipelined worker.
-
-        Device-JPEG groups get ONE retry with the XLA codec programs
-        forced: the Pallas dispatchers' own fallback barrier only sees
-        synchronous (compile-time) failures — a kernel that compiles
-        but faults at execution (async dispatch surfaces it at the
-        np.asarray consumption) lands here instead, and must degrade
-        to the XLA codec rather than fail the batch."""
-        uses_device_codec = (group.layout.startswith("coef")
-                             or (self.device_jpeg
-                                 and group.layout == "chw"))
-        try:
-            return self._device_group_impl(group)
-        except Exception as exc:  # noqa: BLE001 — one-shot degrade
-            if not uses_device_codec:
-                raise
-            log.warning("Device group failed on the device-JPEG path; "
-                        "retrying once via the XLA codec programs",
-                        bucket=list(group.bucket), layout=group.layout,
-                        size=len(group.items), error=str(exc))
-            return self._device_group_impl(group, force_xla_codec=True)
-
-    def _device_group_impl(self, group, force_xla_codec: bool = False):
+        Reusable by both the batch worker and the pipelined worker."""
         plan: OperationPlan = group.items[0].payload[3]
 
         # Watermark renditions that EVERY item can produce by splice
@@ -961,8 +706,7 @@ class ProcessingEngine:
             # this is the PRIMARY production shape with splice on).
             METRICS.observe("engine_device_ms", 0.0)
             METRICS.inc("engine_device_images", len(group.items))
-            return (plan, [("splice", op) for op in plan.ops], {},
-                    group.layout)
+            return plan, [("splice", op) for op in plan.ops], {}
 
         b = quantize_batch(len(group.items))
         if self._mesh is not None:
@@ -1041,54 +785,36 @@ class ProcessingEngine:
             run_out_hws, run_aspect = out_hws, aspect_long
 
         specs = plan_output_specs(run_plan, group.bucket, run_aspect)
-        layout = group.layout
-        if layout.startswith("coef"):
-            # Batched TPU-side JPEG decode straight into the planar
-            # bucket; the result is a device array, so the downstream
-            # program consumes it with no extra host round trip. The
-            # coefficient canvas is MCU-padded past the bucket; the
-            # decode crops back inside the same program.
+        device_coded = group.layout.startswith("coef")
+        if device_coded:
+            # Batched device JPEG decode straight into the bucket; the
+            # result is a device array, so the downstream program
+            # consumes it with no host round trip. The coefficient canvas
+            # is MCU-padded past the bucket; the decode crops back inside
+            # the same program.
             from imageprocessor_tpu.runtime.batcher import coef_factors
-            fh, fw = coef_factors(layout)
+            fh, fw = coef_factors(group.layout)
             yc, cbc, crc, qt, cv = imgs
             imgs = self._decode_coefs(yc, cbc, crc, qt, cv, fh, fw,
-                                      group.bucket,
-                                      force_xla=force_xla_codec)
-            layout = "chw"
-        if layout == "chw" and (
-                not self.model.supports_planar(run_plan, group.bucket)
-                or self.model.max_resample_scale(run_plan, src_hw,
-                                                 run_out_hws)
-                > _MAX_QUANT_SCALE):
-            # Planar decode happened but the bucket/plan fell out of the
-            # planar budget (rare; wide panoramas), or a resample is
-            # steeper than the Pallas band geometry covers (>32x
-            # downscale — decode_for_plan gates this per image, so this
-            # is the group-level backstop): repack as HWC, where the
-            # XLA gather fallback exists for every op.
-            imgs = np.ascontiguousarray(np.transpose(imgs, (0, 2, 3, 1)))
-            layout = "hwc"
+                                      group.bucket)
         t_dev = _time.monotonic()
         if self._mesh is not None and not self._mesh_spatial:
             # Data-parallel over the local mesh: one fused program under
-            # shard_map, batch axis split across chips, no cross-chip
+            # shard_map, batch axis split across cards, no cross-card
             # collectives (images are independent).
             outs = self.model.run_sharded(self._mesh, run_plan, imgs,
-                                          src_hw, run_out_hws, specs,
-                                          layout=layout)
+                                          src_hw, run_out_hws, specs)
         elif self._mesh is not None:
             # (data x space) GSPMD path: place the batch on the mesh and
-            # let XLA auto-partition the jitted XLA-op program — the
-            # horizontal resample's cross-shard gathers lower to ICI
-            # collectives (spatial layout is always HWC; planar decode is
-            # disabled when space > 1).
+            # let XLA auto-partition the jitted program — the horizontal
+            # resample's cross-shard gathers lower to collectives.
             from imageprocessor_tpu.parallel.mesh import batch_sharding
             imgs = jax.device_put(imgs, batch_sharding(self._mesh))
             outs = self.model.run(run_plan, imgs, src_hw, run_out_hws,
-                                  specs, layout=layout)
+                                  specs)
         else:
             outs = self.model.run(run_plan, imgs, src_hw, run_out_hws,
-                                  specs, layout=layout)
+                                  specs)
         # Crop device-side to the group's max valid extent before D2H —
         # canvases are padded well past the real outputs (e.g. a 480x640
         # upload's resize is valid 480x640 inside a 768x1024 canvas), so
@@ -1109,8 +835,7 @@ class ProcessingEngine:
                 cropped.append(("splice", op))
                 continue
             o = outs[ridx[oi]]
-            cv_h, cv_w = (o.shape[2], o.shape[3]) if layout == "chw" \
-                else (o.shape[1], o.shape[2])
+            cv_h, cv_w = o.shape[1], o.shape[2]
             if oi in out_hws:
                 mh = _q64(int(out_hws[oi][:n_real, 0].max()), cv_h)
                 mw = _q64(int(out_hws[oi][:n_real, 1].max()), cv_w)
@@ -1120,12 +845,13 @@ class ProcessingEngine:
             else:
                 mh = _q64(max_h, cv_h)
                 mw = _q64(max_w, cv_w)
-                # Full-bucket ops (watermark/flip/grayscale) whose output
-                # every item wants as JPEG: run the encode front half
-                # (color convert + 4:2:0 downsample + FDCT + quantize)
-                # on device and pull coefficient canvases instead of
-                # pixels; finish_item keeps only the entropy emit.
-                if (self.device_jpeg and layout == "chw"
+                # Full-bucket ops (watermark/flip/grayscale) of
+                # device-decoded groups whose output every item wants as
+                # JPEG: run the encode front half (color convert + 4:2:0
+                # downsample + FDCT + quantize) on device and pull
+                # coefficient canvases instead of pixels; finish_item
+                # keeps only the entropy emit.
+                if (device_coded
                         and mh % 16 == 0 and mw % 16 == 0
                         and all(negotiate_format(
                                     it.payload[2],
@@ -1140,22 +866,11 @@ class ProcessingEngine:
                                   + [(1, 1)] * (o.shape[0]
                                                 - len(group.items)),
                                   dtype=np.int32)
-                    # widen the crop to the next 128 multiple when that
-                    # keeps it inside the canvas — it makes the slice
-                    # eligible for the fused Pallas encode, and the
-                    # extra don't-care columns are never emitted
-                    if (self.model.use_pallas and mw % 128
-                            and -(-mw // 128) * 128 <= cv_w):
-                        mw = -(-mw // 128) * 128
                     yc, cbc, crc = self._encode_coefs(
-                        o[:, :, :mh, :mw], vh, qt,
-                        force_xla=force_xla_codec)
+                        o[:, :mh, :mw], vh, qt)
                     cropped.append(("coef420", yc, cbc, crc, qt))
                     continue
-            if layout == "chw":
-                cropped.append(o[:, :, :mh, :mw])
-            else:
-                cropped.append(o[:, :mh, :mw])
+            cropped.append(o[:, :mh, :mw])
         outs_np = [
             o if (isinstance(o, tuple) and o[0] == "splice")
             else (o[0], np.asarray(o[1]), np.asarray(o[2]),
@@ -1165,10 +880,10 @@ class ProcessingEngine:
         METRICS.observe("engine_device_ms",
                         (_time.monotonic() - t_dev) * 1000.0)
         METRICS.inc("engine_device_images", len(group.items))
-        return plan, outs_np, out_hws, layout
+        return plan, outs_np, out_hws
 
-    def finish_item(self, group, i: int, plan, outs_np, out_hws,
-                    layout: str = "hwc") -> EngineResult:
+    def finish_item(self, group, i: int, plan, outs_np,
+                    out_hws) -> EngineResult:
         """Stage 3 for one image: crop valid regions, encode, save.
         Fail-fast across the image's op list (reference semantics)."""
         it = group.items[i]
@@ -1177,19 +892,16 @@ class ProcessingEngine:
             id=task.id, image_id=task.image_id,
             status=ImageStatus.COMPLETED))
         h, w = it.hw
-        planar = layout == "chw"
         for oi, op in enumerate(plan.ops):
             if oi in out_hws:   # per-image valid output dims known
                 oh, ow = out_hws[oi][i]
-                arr = (outs_np[oi][i][:, :oh, :ow] if planar
-                       else outs_np[oi][i, :oh, :ow])
+                arr = outs_np[oi][i, :oh, :ow]
             elif op.type is OperationType.THUMBNAIL:
                 arr = outs_np[oi][i]
             elif isinstance(outs_np[oi], tuple):  # device-encoded coefs
                 arr = outs_np[oi]
             else:  # full-bucket canvas ops: crop to the valid extent
-                arr = (outs_np[oi][i][:, :h, :w] if planar
-                       else outs_np[oi][i, :h, :w])
+                arr = outs_np[oi][i, :h, :w]
             try:
                 if isinstance(arr, tuple) and arr[0] == "splice":
                     artifact = (
@@ -1208,8 +920,7 @@ class ProcessingEngine:
                 elif isinstance(arr, tuple):
                     artifact = self._emit_and_save(task, op, arr, i, h, w)
                 else:
-                    artifact = self._encode_and_save(task, op, arr, fmt,
-                                                     layout=layout)
+                    artifact = self._encode_and_save(task, op, arr, fmt)
             except Exception as exc:
                 self._classify_op_failure(out, op, exc)
                 return out
@@ -1222,14 +933,14 @@ class ProcessingEngine:
 
         if device_section is not None:
             with device_section("device_group"):
-                plan, outs_np, out_hws, layout = self.device_group(group)
+                plan, outs_np, out_hws = self.device_group(group)
         else:
-            plan, outs_np, out_hws, layout = self.device_group(group)
+            plan, outs_np, out_hws = self.device_group(group)
 
         def _finish(i):
             task_idx = group.items[i].payload[0]
             return task_idx, self.finish_item(group, i, plan, outs_np,
-                                              out_hws, layout)
+                                              out_hws)
 
         t_enc = _time.monotonic()
         for task_idx, res in self._pool.map(_finish,

@@ -1,12 +1,19 @@
-"""ctypes bindings for the native ipcodec shim (native/ipcodec.cpp).
+"""ctypes bindings for the native host codec (native/*.cpp).
 
-The shim is the framework's C++ host-runtime component: libjpeg-turbo
-decode/encode with DCT-domain scaled decode (decode a 12 MP JPEG straight
-to 1/8 size for thumbnail-only plans) and header-only probing for the
-bucketer. Loading is lazy and fully gated: if the shared library is absent
-it is built on demand with g++ (toolchain is part of the deployment
-image); if that fails, callers fall back to the OpenCV/PIL path in
-runtime/codecs.py.
+The library is the framework's C++ host-runtime component. Two parts:
+
+* libjpeg-free: the streaming entropy scanner and emitter
+  (jpeg_scan.cpp, jpeg_emit.cpp) that the device-JPEG route and the
+  splice/coefficient transforms need, the GIF quantizer, and small
+  helpers (iputil.cpp);
+* libjpeg(-turbo) (ipcodec.cpp): decode/encode with DCT-domain scaled
+  decode, coefficient reads and header-only probing.
+
+Loading is lazy: if the shared library is absent it is built on demand
+with g++. A host without libjpeg's headers gets the libjpeg-free part
+only (`available()` is True, `has_libjpeg()` False); the libjpeg entry
+points then raise NativeCodecError and callers fall back to the
+OpenCV/PIL path in runtime/codecs.py.
 """
 
 from __future__ import annotations
@@ -24,6 +31,10 @@ _SRC = _REPO_ROOT / "native" / "ipcodec.cpp"
 _SRC_SCAN = _REPO_ROOT / "native" / "jpeg_scan.cpp"
 _SRC_EMIT = _REPO_ROOT / "native" / "jpeg_emit.cpp"
 _SRC_GIF = _REPO_ROOT / "native" / "gifquant.cpp"
+_SRC_UTIL = _REPO_ROOT / "native" / "iputil.cpp"
+# Sources that need no codec library; ipcodec.cpp (libjpeg) joins them
+# when the host has libjpeg's headers.
+_SRCS_BASE = (_SRC_SCAN, _SRC_EMIT, _SRC_GIF, _SRC_UTIL)
 _LIB = _REPO_ROOT / "native" / "libipcodec.so"
 
 _lock = threading.Lock()
@@ -36,24 +47,24 @@ class NativeCodecError(RuntimeError):
 
 
 def _build() -> bool:
-    srcs = [str(_SRC)]
-    for extra_src in (_SRC_SCAN, _SRC_EMIT, _SRC_GIF):
-        if extra_src.exists():
-            srcs.append(str(extra_src))
-    # Built at import time on the machine that runs it, so -march=native
-    # is safe and worth ~15% on the entropy decoder; fall back to plain
-    # -O3 for compilers/arches that reject it.
+    base = [str(src) for src in _SRCS_BASE]
+    # Built on the machine that runs it, so -march=native is safe and
+    # worth ~15% on the entropy decoder; fall back to plain -O3 for
+    # compilers/arches that reject it, and to the libjpeg-free sources
+    # when libjpeg's headers or library are missing.
     # Compile to a per-process temp name, then atomically rename into
     # place: concurrent worker processes cold-starting together must
-    # never dlopen a half-written .so (which would pin the slow
-    # PIL/OpenCV fallback for that process's whole lifetime).
+    # never dlopen a half-written .so.
     tmp = _LIB.with_suffix(f".{os.getpid()}.tmp.so")
-    for extra in (["-march=native"], []):
+    attempts = [([str(_SRC), *base], arch, ["-ljpeg"])
+                for arch in (["-march=native"], [])]
+    attempts += [(base, arch, []) for arch in (["-march=native"], [])]
+    for srcs, arch, libs in attempts:
         try:
             subprocess.run(
-                ["g++", "-O3", *extra, "-shared", "-fPIC", "-pthread",
-                 *srcs, "-o", str(tmp), "-ljpeg"],
-                check=True, capture_output=True, timeout=120)
+                ["g++", "-O3", *arch, "-shared", "-fPIC", "-pthread",
+                 *srcs, "-o", str(tmp), *libs],
+                check=True, capture_output=True, timeout=180)
             os.replace(tmp, _LIB)
             return True
         except (subprocess.SubprocessError, OSError):
@@ -71,7 +82,7 @@ def _stale() -> bool:
     try:
         lib_m = _LIB.stat().st_mtime
         return any(s.exists() and s.stat().st_mtime > lib_m
-                   for s in (_SRC, _SRC_SCAN, _SRC_EMIT, _SRC_GIF))
+                   for s in (_SRC, *_SRCS_BASE))
     except OSError:
         return True
 
@@ -83,54 +94,34 @@ def _load() -> ctypes.CDLL | None:
     with _lock:
         if _lib is not None or _load_failed:
             return _lib
-        if _SRC.exists() and (not _LIB.exists() or _stale()):
+        if not _LIB.exists() or _stale():
             if not _build() and not _LIB.exists():
                 _load_failed = True
                 return None
         try:
             lib = ctypes.CDLL(str(_LIB))
         except OSError:
-            _load_failed = True
-            return None
+            # A library built on another host (e.g. linked against a
+            # libjpeg this one lacks): rebuild here once, then retry.
+            try:
+                if not _build():
+                    raise OSError("native build failed")
+                lib = ctypes.CDLL(str(_LIB))
+            except OSError:
+                _load_failed = True
+                return None
         try:
-            _set_core_argtypes(lib)
+            _set_scan_argtypes(lib)
         except AttributeError:
-            # Stale .so missing a core entry point (built before the
-            # planar/coef API) and the rebuild above failed: treat the
-            # library as unavailable so available() returns False and
-            # callers degrade to the generic codec path, instead of the
-            # AttributeError escaping _load and crashing engine
-            # construction. (The scan/emit/crc extras below keep their
-            # own per-symbol guards — they are optional.)
+            # Stale .so missing the scanner entry points and the rebuild
+            # above failed: treat the library as unavailable so
+            # available() returns False and callers degrade to the
+            # generic codec path.
             _load_failed = True
             return None
+        if hasattr(lib, "ip_jpeg_probe"):
+            _set_libjpeg_argtypes(lib)
         try:
-            lib.ip_jpeg_scan_dims.argtypes = lib.ip_jpeg_coef_dims.argtypes
-            lib.ip_jpeg_scan_dims.restype = ctypes.c_int
-            lib.ip_jpeg_scan_coefs.argtypes = [
-                ctypes.c_char_p, ctypes.c_size_t,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            lib.ip_jpeg_scan_coefs.restype = ctypes.c_int
-            lib.ip_jpeg_scan_coefs_mt.argtypes = [
-                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-            lib.ip_jpeg_scan_coefs_mt.restype = ctypes.c_int
-            lib.ip_jpeg_scan_qtabs.argtypes = [
-                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p]
-            lib.ip_jpeg_scan_qtabs.restype = ctypes.c_int
-            lib.ip_jpeg_emit.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_size_t]
-            lib.ip_jpeg_emit.restype = ctypes.c_long
-            lib.ip_jpeg_emit_strided.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_long, ctypes.c_long, ctypes.c_long,
-                ctypes.c_void_p, ctypes.c_size_t]
-            lib.ip_jpeg_emit_strided.restype = ctypes.c_long
             lib.ip_jpeg_emit_strided_ilp.argtypes = (
                 lib.ip_jpeg_emit_strided.argtypes + [ctypes.c_int])
             lib.ip_jpeg_emit_strided_ilp.restype = ctypes.c_long
@@ -199,9 +190,45 @@ def _load() -> ctypes.CDLL | None:
         return _lib
 
 
-def _set_core_argtypes(lib: ctypes.CDLL) -> None:
-    """Signatures every usable libipcodec.so must expose; raises
-    AttributeError on a pre-planar-API stale build."""
+def _set_scan_argtypes(lib: ctypes.CDLL) -> None:
+    """Signatures of the libjpeg-free core every usable build exposes;
+    raises AttributeError on a stale build."""
+    lib.ip_jpeg_scan_dims.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.ip_jpeg_scan_dims.restype = ctypes.c_int
+    lib.ip_jpeg_scan_coefs.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.ip_jpeg_scan_coefs.restype = ctypes.c_int
+    lib.ip_jpeg_scan_coefs_mt.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    lib.ip_jpeg_scan_coefs_mt.restype = ctypes.c_int
+    lib.ip_jpeg_scan_qtabs.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p]
+    lib.ip_jpeg_scan_qtabs.restype = ctypes.c_int
+    lib.ip_jpeg_emit.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_size_t]
+    lib.ip_jpeg_emit.restype = ctypes.c_long
+    lib.ip_jpeg_emit_strided.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_long, ctypes.c_long, ctypes.c_long,
+        ctypes.c_void_p, ctypes.c_size_t]
+    lib.ip_jpeg_emit_strided.restype = ctypes.c_long
+    lib.ip_free.argtypes = [ctypes.c_void_p]
+    lib.ip_free.restype = None
+
+
+def _set_libjpeg_argtypes(lib: ctypes.CDLL) -> None:
+    """Signatures of the libjpeg part (ipcodec.cpp)."""
     lib.ip_jpeg_probe.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
@@ -219,39 +246,36 @@ def _set_core_argtypes(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_size_t)]
     lib.ip_jpeg_encode.restype = ctypes.c_int
-    lib.ip_jpeg_decode_planar.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-    lib.ip_jpeg_decode_planar.restype = ctypes.c_int
-    lib.ip_jpeg_encode_planar.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_size_t)]
-    lib.ip_jpeg_encode_planar.restype = ctypes.c_int
-    lib.ip_jpeg_coef_dims.argtypes = [
-        ctypes.c_char_p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.ip_jpeg_coef_dims.argtypes = lib.ip_jpeg_scan_dims.argtypes
     lib.ip_jpeg_coef_dims.restype = ctypes.c_int
     lib.ip_jpeg_read_coefs.argtypes = [
         ctypes.c_char_p, ctypes.c_size_t,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]
     lib.ip_jpeg_read_coefs.restype = ctypes.c_int
-    lib.ip_free.argtypes = [ctypes.c_void_p]
-    lib.ip_free.restype = None
 
 
 def available() -> bool:
+    """True when the libjpeg-free core (entropy scan/emit) loaded."""
     return _load() is not None
+
+
+def has_libjpeg() -> bool:
+    """True when the library also carries the libjpeg part."""
+    lib = _load()
+    return lib is not None and hasattr(lib, "ip_jpeg_probe")
+
+
+def _libjpeg() -> ctypes.CDLL:
+    lib = _load()
+    if lib is None or not hasattr(lib, "ip_jpeg_probe"):
+        raise NativeCodecError("native libjpeg codec unavailable")
+    return lib
 
 
 def probe_jpeg(data: bytes) -> tuple[int, int, int]:
     """(width, height, components) from the header, no entropy decode."""
-    lib = _load()
-    if lib is None:
-        raise NativeCodecError("native codec unavailable")
+    lib = _libjpeg()
     w = ctypes.c_int()
     h = ctypes.c_int()
     c = ctypes.c_int()
@@ -271,9 +295,7 @@ def decode_jpeg(data: bytes, scale_num: int = 8) -> np.ndarray:
     """
     if not 1 <= scale_num <= 8:
         raise ValueError("scale_num must be in 1..8")
-    lib = _load()
-    if lib is None:
-        raise NativeCodecError("native codec unavailable")
+    lib = _libjpeg()
     ow = ctypes.c_int()
     oh = ctypes.c_int()
     rc = lib.ip_jpeg_scaled_dims(data, len(data), scale_num,
@@ -287,38 +309,6 @@ def decode_jpeg(data: bytes, scale_num: int = 8) -> np.ndarray:
     if rc != 0:
         raise NativeCodecError(f"decode failed (rc={rc})")
     return out
-
-
-def decode_jpeg_planar(data: bytes, scale_num: int = 8,
-                       pad_hw: tuple[int, int] | None = None) -> np.ndarray:
-    """Decode straight to planar (3, H, W) uint8 — the layout the TPU
-    pipeline wants — optionally into a zero-padded (3, pad_h, pad_w)
-    bucket canvas, avoiding both a device transpose and a host repack."""
-    if not 1 <= scale_num <= 8:
-        raise ValueError("scale_num must be in 1..8")
-    lib = _load()
-    if lib is None:
-        raise NativeCodecError("native codec unavailable")
-    ow = ctypes.c_int()
-    oh = ctypes.c_int()
-    rc = lib.ip_jpeg_scaled_dims(data, len(data), scale_num,
-                                 ctypes.byref(ow), ctypes.byref(oh))
-    if rc != 0:
-        raise NativeCodecError(f"bad jpeg (rc={rc})")
-    if pad_hw is None:
-        ph, pw = oh.value, ow.value
-    else:
-        ph, pw = pad_hw
-        if ph < oh.value or pw < ow.value:
-            raise ValueError("pad_hw smaller than decoded size")
-    out = np.zeros((3, ph, pw), dtype=np.uint8)
-    rc = lib.ip_jpeg_decode_planar(data, len(data), scale_num,
-                                   out.ctypes.data_as(ctypes.c_void_p),
-                                   out.strides[1], ph)
-    if rc != 0:
-        raise NativeCodecError(f"planar decode failed (rc={rc})")
-    return out
-
 
 
 # Decompression-bomb gate for the coefficient paths: plane allocation is
@@ -339,16 +329,14 @@ def _check_coef_dims(iw: int, ih: int) -> None:
 def read_jpeg_coefficients(data: bytes):
     """Entropy-decode ONLY: quantized DCT coefficient planes + quant tables.
 
-    This is the host side of TPU-side JPEG decode — the sequential Huffman
+    This is the host side of device-side JPEG decode — the sequential Huffman
     pass stays here (~1/3 of a full decode), while dequant + iDCT +
     upsample + color conversion run on the accelerator
     (ops/jpeg_decode.py). Returns (planes, qtabs, (img_w, img_h), sampling)
     where planes[c] is int16 (blocks_h*8, blocks_w*8) with each 8x8 block
     at its spatial position, and qtabs is (ncomp, 8, 8) float32.
     """
-    lib = _load()
-    if lib is None:
-        raise NativeCodecError("native codec unavailable")
+    lib = _libjpeg()
     ncomp = ctypes.c_int()
     iw = ctypes.c_int()
     ih = ctypes.c_int()
@@ -385,7 +373,7 @@ def read_jpeg_coefficients(data: bytes):
 
 def scan_jpeg_coefficients(data: bytes, threads: int = 0):
     """Streaming entropy decode (native/jpeg_scan.cpp): ONE pass, no
-    intermediate buffering — the fast host half of TPU-side JPEG decode.
+    intermediate buffering — the fast host half of device-side JPEG decode.
 
     Returns (planes, qtabs, (img_w, img_h), sampling) like
     read_jpeg_coefficients, except plane dims are MCU-aligned (>= the
@@ -446,7 +434,7 @@ def emit_jpeg_from_coefficients(planes, qtabs, img_w: int, img_h: int,
                                 interleave: int = 1) -> bytes:
     """Entropy-encode quantized coefficient planes into a baseline JFIF
     stream (native/jpeg_emit.cpp, Annex K Huffman tables) — the host
-    half of TPU-side JPEG encode.
+    half of device-side JPEG encode.
 
     planes: 1 or 3 int16 arrays in natural order, spatial block layout,
     MCU-aligned dims (luma (ceil(h/8v0)*8v0, ceil(w/8h0)*8h0); chroma
@@ -731,43 +719,8 @@ def emit_jpeg_transcode(ctx: JpegSpliceContext,
     return out[:rc].tobytes()
 
 
-def encode_jpeg_planar(planes: np.ndarray, width: int, height: int,
-                       quality: int = 85) -> bytes:
-    """Encode the valid (height, width) window of a planar (3, H, W)
-    array — interleaving happens inside the native scanline loop, so no
-    host-side transpose ever materializes. Accepts top-left-anchored
-    views of larger planes without copying (stride-aware)."""
-    lib = _load()
-    if lib is None:
-        raise NativeCodecError("native codec unavailable")
-    if planes.ndim != 3 or planes.shape[0] != 3:
-        raise ValueError("expected (3, H, W) planar array")
-    if height > planes.shape[1] or width > planes.shape[2]:
-        raise ValueError("valid window exceeds plane dims")
-    if planes.dtype != np.uint8:
-        planes = planes.astype(np.uint8)
-    s0, s1, s2 = planes.strides
-    if s2 != 1 or s1 <= 0 or s0 % s1 != 0:
-        planes = np.ascontiguousarray(planes)
-        s0, s1, _ = planes.strides
-    out_p = ctypes.c_void_p()
-    out_len = ctypes.c_size_t()
-    rc = lib.ip_jpeg_encode_planar(
-        planes.ctypes.data_as(ctypes.c_void_p), width, height,
-        s1, s0 // s1, int(quality),
-        ctypes.byref(out_p), ctypes.byref(out_len))
-    if rc != 0:
-        raise NativeCodecError(f"planar encode failed (rc={rc})")
-    try:
-        return ctypes.string_at(out_p, out_len.value)
-    finally:
-        lib.ip_free(out_p)
-
-
 def encode_jpeg(rgb: np.ndarray, quality: int = 85) -> bytes:
-    lib = _load()
-    if lib is None:
-        raise NativeCodecError("native codec unavailable")
+    lib = _libjpeg()
     rgb = np.asarray(rgb)
     # The native encoder unconditionally reads 3 bytes/pixel: anything
     # narrower would make it read past the final row (heap OOB).

@@ -46,6 +46,10 @@ def main(argv: list[str] | None = None) -> int:
     init_logging(cfg.log_level)
 
     if args.mode == "api":
+        # The API process handles uploads only; it must never claim a
+        # card that a worker on the same host needs.
+        import jax
+        jax.config.update("jax_platforms", "cpu")
         from imageprocessor_tpu.service.app import run_api
         run_api(cfg)
         return 0
@@ -65,8 +69,16 @@ def main(argv: list[str] | None = None) -> int:
         server.close()
         return 0
 
-    if args.mode in ("worker", "standalone") and config_mod.apply_device_platform(cfg):
-        log.info("Forced JAX platform", platform=cfg.device.platform)
+    if args.mode in ("worker", "standalone"):
+        if config_mod.apply_device_platform(cfg):
+            log.info("Forced JAX platform", platform=cfg.device.platform)
+        from imageprocessor_tpu.runtime import device
+        try:
+            device.require_platform(cfg.device.platform, device.detect())
+        except (device.PlatformError, RuntimeError) as exc:
+            log.error("Device platform unavailable", error=str(exc))
+            return 3
+        device.enable_compile_cache()
 
     if args.mode == "worker":
         if args.pipelined:

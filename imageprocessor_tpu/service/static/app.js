@@ -1,4 +1,4 @@
-/* ImageProcessor TPU web UI.
+/* ImageProcessor web UI.
  *
  * Functional equivalent of the reference SPA (upload with operation flags,
  * status polling, per-operation view/download, delete) re-implemented from

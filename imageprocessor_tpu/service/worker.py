@@ -1,7 +1,7 @@
 """Queue worker: broker poll -> engine micro-batches -> metadata + ack.
 
 Replaces the reference's goroutine-pool worker (reference:
-internal/worker/worker.go:76-234) with a batch loop shaped for the TPU:
+internal/worker/worker.go:76-234) with a batch loop shaped for the device:
 instead of N goroutines each handling one message, one loop polls up to
 `batch_size` messages, the engine processes them as fused device batches,
 and acks land per message after its metadata writes — the reference's
@@ -88,11 +88,6 @@ class Worker:
                  broker: Broker | None = None,
                  engine: ProcessingEngine | None = None):
         self.cfg = cfg
-        if cfg.device.compile_cache_dir:
-            from imageprocessor_tpu.models.pipeline import (
-                enable_compile_cache,
-            )
-            enable_compile_cache(cfg.device.compile_cache_dir)
         self.meta = meta or build_metadata_store(cfg.db)
         self.store = store or build_object_store(cfg.storage)
         self.broker = broker or build_broker(cfg.broker)
@@ -103,18 +98,15 @@ class Worker:
         self.engine = engine or ProcessingEngine(
             self.store, codec_threads=cfg.worker.concurrency,
             batch_size=cfg.worker.batch_size,
-            # True in config means "where supported" (auto-detect platform);
-            # False hard-disables the Pallas paths.
-            use_pallas=(None if cfg.device.use_pallas else False),
-            compute_dtype=(cfg.device.compute_dtype
-                           if cfg.device.compute_dtype in ("float32",
-                                                           "bfloat16")
-                           else "bfloat16"),
-            # DEVICE_DATA_AXIS / DEVICE_SPACE_AXIS: multi-chip serving —
-            # one worker process drives all local chips via the engine's
-            # mesh (0 = auto-detect on TPU backends).
+            # DEVICE_DATA_AXIS / DEVICE_SPACE_AXIS: multi-card serving —
+            # one worker process drives all local cards via the engine's
+            # mesh (0 = every local GPU; runtime/device.py).
             data_axis=cfg.device.data_axis,
             space_axis=cfg.device.space_axis)
+        log.info("Worker device", **self.engine.caps.describe(),
+                 mesh=(dict(self.engine._mesh.shape)
+                       if self.engine._mesh is not None else None),
+                 device_jpeg=self.engine.device_jpeg)
         self._stop = threading.Event()
         self._idle_sleep = max(cfg.worker.batch_deadline_ms / 1000.0, 0.005)
         # Hung-device-RPC watchdog (utils/watchdog.py): a wedged device

@@ -3,7 +3,7 @@
 The reference has no tracing subsystem (SURVEY.md §5) — only log-line
 durations. Here every pipeline stage can be wrapped in `span(...)`, which
 feeds the metrics histograms AND annotates the device trace when a
-profiler capture is active, so host stages line up with TPU timelines in
+profiler capture is active, so host stages line up with device timelines in
 TensorBoard/Perfetto.
 
     with span("decode"):

@@ -12,7 +12,8 @@
 // All functions are thread-safe (no shared state); libjpeg releases no
 // GIL concerns since calls happen outside Python.
 //
-// Build: make native  (g++ -O2 -shared -fPIC ipcodec.cpp -ljpeg)
+// Build: make native (links -ljpeg; without libjpeg the library is built
+// from the other native sources alone, see runtime/nativecodec.py _build).
 
 #include <csetjmp>
 #include <cstdint>
@@ -39,10 +40,6 @@ void error_exit(j_common_ptr cinfo) {
 void silence_output(j_common_ptr, int) {}
 
 }  // namespace
-
-#if defined(__SSE4_2__)
-#include <nmmintrin.h>  // SSE4.2 CRC-32C intrinsics (ip_crc32c below)
-#endif
 
 extern "C" {
 
@@ -106,123 +103,6 @@ int ip_jpeg_decode(const uint8_t* data, size_t len, int scale_num,
   return 0;
 }
 
-// Decode to PLANAR RGB (3 separate planes, C-H-W layout) with DCT-domain
-// scaling. `out` holds 3 * plane_h * plane_stride bytes (plane-major).
-// The TPU pipeline consumes planar uint8 — (H, W, 3) puts the 3 channels
-// on the 128-lane axis and runs ~30x slower than (3, H, W) — so decoding
-// straight to planar deletes a 2x-full-frame device transpose per batch.
-int ip_jpeg_decode_planar(const uint8_t* data, size_t len, int scale_num,
-                          uint8_t* out, int plane_stride, int plane_h) {
-  jpeg_decompress_struct cinfo;
-  ErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = error_exit;
-  jerr.pub.emit_message = silence_output;
-  // volatile: assigned between setjmp and longjmp, then read after the
-  // longjmp — without it the register-restored value is indeterminate
-  // (C11 7.13.2.1) and the scanline buffer leaks (or worse) on every
-  // corrupt-stream bail-out.
-  uint8_t* volatile row = nullptr;
-  if (setjmp(jerr.setjmp_buffer)) {
-    free(row);
-    jpeg_destroy_decompress(&cinfo);
-    return 1;
-  }
-  jpeg_create_decompress(&cinfo);
-  jpeg_mem_src(&cinfo, data, len);
-  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
-    jpeg_destroy_decompress(&cinfo);
-    return 2;
-  }
-  cinfo.out_color_space = JCS_RGB;
-  cinfo.scale_num = scale_num;
-  cinfo.scale_denom = 8;
-  cinfo.dct_method = JDCT_ISLOW;
-  jpeg_start_decompress(&cinfo);
-  const size_t w = cinfo.output_width;
-  row = static_cast<uint8_t*>(malloc(w * 3));
-  if (row == nullptr) {
-    jpeg_destroy_decompress(&cinfo);
-    return 3;
-  }
-  uint8_t* r_plane = out;
-  uint8_t* g_plane = out + static_cast<size_t>(plane_h) * plane_stride;
-  uint8_t* b_plane = g_plane + static_cast<size_t>(plane_h) * plane_stride;
-  while (cinfo.output_scanline < cinfo.output_height) {
-    const size_t y = cinfo.output_scanline;
-    JSAMPROW rp = row;
-    jpeg_read_scanlines(&cinfo, &rp, 1);
-    uint8_t* r = r_plane + y * static_cast<size_t>(plane_stride);
-    uint8_t* g = g_plane + y * static_cast<size_t>(plane_stride);
-    uint8_t* b = b_plane + y * static_cast<size_t>(plane_stride);
-    for (size_t x = 0; x < w; ++x) {
-      r[x] = row[3 * x];
-      g[x] = row[3 * x + 1];
-      b[x] = row[3 * x + 2];
-    }
-  }
-  free(row);
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  return 0;
-}
-
-// Encode PLANAR RGB (3 planes, plane_stride bytes apart per row) to JPEG.
-int ip_jpeg_encode_planar(const uint8_t* planes, int w, int h,
-                          int plane_stride, int plane_h, int quality,
-                          uint8_t** out, size_t* out_len) {
-  jpeg_compress_struct cinfo;
-  ErrorMgr jerr;
-  cinfo.err = jpeg_std_error(&jerr.pub);
-  jerr.pub.error_exit = error_exit;
-  jerr.pub.emit_message = silence_output;
-  // volatile: libjpeg's jpeg_mem_dest reassigns buf between setjmp and
-  // longjmp; reading a non-volatile copy after the longjmp is
-  // indeterminate (C11 7.13.2.1) — same fix as `row` in
-  // ip_jpeg_decode_planar.
-  unsigned char* volatile buf = nullptr;
-  unsigned long buflen = 0;
-  uint8_t* row = static_cast<uint8_t*>(malloc(static_cast<size_t>(w) * 3));
-  if (row == nullptr) return 3;
-  if (setjmp(jerr.setjmp_buffer)) {
-    jpeg_destroy_compress(&cinfo);
-    free(row);
-    if (buf != nullptr) free(buf);
-    return 1;
-  }
-  jpeg_create_compress(&cinfo);
-  jpeg_mem_dest(&cinfo, const_cast<unsigned char**>(&buf), &buflen);
-  cinfo.image_width = static_cast<JDIMENSION>(w);
-  cinfo.image_height = static_cast<JDIMENSION>(h);
-  cinfo.input_components = 3;
-  cinfo.in_color_space = JCS_RGB;
-  jpeg_set_defaults(&cinfo);
-  jpeg_set_quality(&cinfo, quality, TRUE);
-  jpeg_start_compress(&cinfo, TRUE);
-  const uint8_t* r_plane = planes;
-  const uint8_t* g_plane = planes + static_cast<size_t>(plane_h) * plane_stride;
-  const uint8_t* b_plane = g_plane + static_cast<size_t>(plane_h) * plane_stride;
-  while (cinfo.next_scanline < cinfo.image_height) {
-    const size_t y = cinfo.next_scanline;
-    const uint8_t* r = r_plane + y * static_cast<size_t>(plane_stride);
-    const uint8_t* g = g_plane + y * static_cast<size_t>(plane_stride);
-    const uint8_t* b = b_plane + y * static_cast<size_t>(plane_stride);
-    for (int x = 0; x < w; ++x) {
-      row[3 * x] = r[x];
-      row[3 * x + 1] = g[x];
-      row[3 * x + 2] = b[x];
-    }
-    JSAMPROW rp = row;
-    jpeg_write_scanlines(&cinfo, &rp, 1);
-  }
-  jpeg_finish_compress(&cinfo);
-  jpeg_destroy_compress(&cinfo);
-  free(row);
-  *out = buf;
-  *out_len = buflen;
-  return 0;
-}
-
 // Scaled output dimensions for scale_num/8 without decoding.
 int ip_jpeg_scaled_dims(const uint8_t* data, size_t len, int scale_num,
                         int* out_w, int* out_h) {
@@ -259,8 +139,8 @@ int ip_jpeg_encode(const uint8_t* rgb, int w, int h, int stride, int quality,
   cinfo.err = jpeg_std_error(&jerr.pub);
   jerr.pub.error_exit = error_exit;
   jerr.pub.emit_message = silence_output;
-  // volatile: see ip_jpeg_encode_planar — buf is reassigned by
-  // jpeg_mem_dest between setjmp and longjmp.
+  // volatile: buf is reassigned by jpeg_mem_dest between setjmp and
+  // longjmp, so it must be reloaded from memory after a longjmp.
   unsigned char* volatile buf = nullptr;
   unsigned long buflen = 0;
   if (setjmp(jerr.setjmp_buffer)) {
@@ -290,12 +170,11 @@ int ip_jpeg_encode(const uint8_t* rgb, int w, int h, int stride, int quality,
   return 0;
 }
 
-void ip_free(void* p) { free(p); }
 
-// --- DCT-coefficient access (TPU-side decode support) ----------------------
+// --- DCT-coefficient access (device-side decode support) -------------------
 //
 // The expensive parts of JPEG decode (dequant + iDCT + upsample + color
-// convert) are dense math that belongs on the TPU; only the sequential
+// convert) are dense math that belongs on the device; only the sequential
 // Huffman decode stays on host. ip_jpeg_read_coefs extracts the quantized
 // coefficient planes + quant tables; the device turns them into pixels.
 
@@ -402,95 +281,6 @@ int ip_jpeg_read_coefs(const uint8_t* data, size_t len,
   }
   jpeg_finish_decompress(&cinfo);
   jpeg_destroy_decompress(&cinfo);
-  return 0;
-}
-
-// CRC-32C (Castagnoli) — the checksum Kafka RecordBatch v2 mandates.
-// Hardware SSE4.2 path when the build arch has it (-march=native /
-// x86-64-v2 both do), byte-table fallback otherwise. Exposed so the
-// pure-Python Kafka client can validate megabyte fetch payloads at
-// native speed instead of ~5 MB/s Python-loop speed.
-uint32_t ip_crc32c(const uint8_t* data, size_t len, uint32_t crc) {
-  crc ^= 0xFFFFFFFFu;
-#if defined(__SSE4_2__)
-  uint64_t c = crc;
-  while (len >= 8) {
-    uint64_t chunk;
-    memcpy(&chunk, data, 8);
-    c = _mm_crc32_u64(c, chunk);
-    data += 8;
-    len -= 8;
-  }
-  crc = static_cast<uint32_t>(c);
-  while (len--) crc = _mm_crc32_u8(crc, *data++);
-#else
-  // C++11 magic static: thread-safe one-time table build.
-  static const struct Table {
-    uint32_t t[256];
-    Table() {
-      for (uint32_t i = 0; i < 256; ++i) {
-        uint32_t r = i;
-        for (int k = 0; k < 8; ++k)
-          r = (r >> 1) ^ (0x82F63B78u & (0u - (r & 1u)));
-        t[i] = r;
-      }
-    }
-  } tbl;
-  while (len--) crc = tbl.t[(crc ^ *data++) & 0xFFu] ^ (crc >> 8);
-#endif
-  return crc ^ 0xFFFFFFFFu;
-}
-
-// Blocked coefficient-plane rotation for the lossless JPEG transforms
-// (runtime/coeftx.py). The plane is an (hb*8, wb*8) int16 grid of 8x8
-// DCT blocks; a 90-degree image rotation is a transpose of the block
-// GRID combined with a transpose of EACH block plus a frequency sign
-// flip inherited from the mirror half of the decomposition:
-//   mode 0: pure transpose          out_blk(I,J) = T(src_blk(J,I))
-//   mode 1: rot90 ccw               out_blk(I,J) = T(src_blk(J,wb-1-I)),
-//           out[u][v] *= (u&1) ? -1 : 1   (flip_h's (-1)^v pre-transpose)
-//   mode 2: rot270 ccw              out_blk(I,J) = T(src_blk(hb-1-J,I)),
-//           out[u][v] *= (v&1) ? -1 : 1   (flip_v's (-1)^u pre-transpose)
-// dst dims are (wb*8, hb*8). Output blocks are written sequentially
-// (row-major) so the pass runs at copy bandwidth instead of the
-// cache-hostile element-wise transpose numpy performs (~6x measured).
-// Returns 0 on success, nonzero on bad arguments.
-int ip_coef_rot_i16(const int16_t* src, int64_t hb, int64_t wb,
-                    int16_t* dst, int mode) {
-  if (!src || !dst || hb <= 0 || wb <= 0 || mode < 0 || mode > 2)
-    return 1;
-  const int64_t sstride = wb * 8;   // src row stride (elements)
-  const int64_t dstride = hb * 8;   // dst row stride
-  for (int64_t I = 0; I < wb; ++I) {
-    for (int64_t J = 0; J < hb; ++J) {
-      int64_t sr = J, sc = I;
-      if (mode == 1) sc = wb - 1 - I;
-      else if (mode == 2) sr = hb - 1 - J;
-      const int16_t* s = src + (sr * 8) * sstride + sc * 8;
-      int16_t* d = dst + (I * 8) * dstride + J * 8;
-      if (mode == 1) {
-        for (int u = 0; u < 8; ++u) {
-          int16_t* drow = d + u * dstride;
-          const int16_t sign = (u & 1) ? -1 : 1;
-          for (int v = 0; v < 8; ++v)
-            drow[v] = static_cast<int16_t>(s[v * sstride + u] * sign);
-        }
-      } else if (mode == 2) {
-        for (int u = 0; u < 8; ++u) {
-          int16_t* drow = d + u * dstride;
-          for (int v = 0; v < 8; ++v)
-            drow[v] = static_cast<int16_t>(
-                s[v * sstride + u] * ((v & 1) ? -1 : 1));
-        }
-      } else {
-        for (int u = 0; u < 8; ++u) {
-          int16_t* drow = d + u * dstride;
-          for (int v = 0; v < 8; ++v)
-            drow[v] = s[v * sstride + u];
-        }
-      }
-    }
-  }
   return 0;
 }
 

@@ -8,7 +8,7 @@
 // internal/usecase/image_processor.go encodes via image/jpeg at q85).
 // With this, the host-side cost of JPEG encode is the entropy pass
 // alone; all dense math (color convert, downsample, FDCT, quantize)
-// runs on the TPU.
+// runs on the device.
 //
 // Round-trip property (tested): ip_jpeg_scan_coefs(ip_jpeg_emit(P)) == P
 // bit-exactly, for any coefficient planes in range.

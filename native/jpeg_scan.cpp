@@ -1,7 +1,7 @@
 // jpeg_scan — streaming baseline-JPEG entropy decoder.
 //
 // Purpose: extract quantized DCT coefficient planes with ONE pass and no
-// intermediate buffering, so the host-side cost of TPU-side JPEG decode is
+// intermediate buffering, so the host-side cost of device-side JPEG decode is
 // the Huffman work alone. libjpeg's jpeg_read_coefficients buffers the
 // whole image through virtual block arrays and costs as much as a full
 // SIMD decode (see PERF.md); this decoder writes int16 planes (natural

@@ -277,7 +277,7 @@ def test_engine_rejects_truncated_jpeg_with_thumbnail_eoi_in_tail():
 
     with tempfile.TemporaryDirectory() as td:
         store = LocalFSObjectStore(td)
-        eng = ProcessingEngine(store, device_jpeg=False, use_pallas=False)
+        eng = ProcessingEngine(store, device_jpeg=False)
         try:
             task = ProcessingTask(
                 id="t-trunc", image_id="i-trunc",

@@ -194,7 +194,7 @@ def test_engine_serves_transform_plans_without_pixel_decode(tmp_path):
     from imageprocessor_tpu.utils.metrics import METRICS
 
     store = LocalFSObjectStore(str(tmp_path / "objects"))
-    eng = ProcessingEngine(store, device_jpeg=False, use_pallas=False)
+    eng = ProcessingEngine(store, device_jpeg=False)
     try:
         src = jpeg_bytes(64, 80)
         srcpx = np.asarray(PILImage.open(io.BytesIO(src)).convert("RGB"))
@@ -249,7 +249,7 @@ def test_engine_transforms_progressive_and_grayscale_sources(tmp_path):
     sources promote to color in the coefficient domain (the same
     promotion the pixel pipeline performs)."""
     store = LocalFSObjectStore(str(tmp_path / "objects"))
-    eng = ProcessingEngine(store, device_jpeg=False, use_pallas=False)
+    eng = ProcessingEngine(store, device_jpeg=False)
     try:
         for blob in (jpeg_bytes(64, 80, progressive=True),
                      jpeg_bytes(64, 80, gray=True)):
@@ -428,7 +428,7 @@ def test_rs_mirror_through_engine_1080p_shape(tmp_path):
     """1920x1080-class sources (h % 16 == 8 at 4:2:0) flip vertically
     through the engine via the rs path — previously pixel-path-only."""
     store = LocalFSObjectStore(str(tmp_path / "objects"))
-    eng = ProcessingEngine(store, device_jpeg=False, use_pallas=False)
+    eng = ProcessingEngine(store, device_jpeg=False)
     try:
         src = jpeg_bytes(120, 160)  # 120 % 16 == 8, same class as 1080
         srcpx = np.asarray(PILImage.open(io.BytesIO(src)).convert("RGB"))

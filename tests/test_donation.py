@@ -4,7 +4,8 @@ The source batch is donated ONLY when the plan contains a watermark op —
 the one output that shares the input's exact shape/dtype and is computed
 as an in-place region blend. Donating on any other plan cannot alias and
 makes XLA emit "Some donated buffers were not usable" on every step.
-These tests fail on ANY such warning, for both layouts.
+These tests fail on ANY such warning, for host and device-resident
+inputs alike.
 """
 
 import warnings
@@ -21,7 +22,7 @@ from imageprocessor_tpu.models.plan import normalize_operations
 RNG = np.random.default_rng(17)
 
 
-def _run_plan(ops, layout="hwc", **model_kw):
+def _run_plan(ops, device_input=False):
     plan = normalize_operations(ops)
     bucket = (96, 128)
     b = 2
@@ -34,14 +35,14 @@ def _run_plan(ops, layout="hwc", **model_kw):
         elif op.type is OperationType.THUMBNAIL:
             out_hws[i] = np.asarray([[op.size, op.size]] * b, np.int32)
     specs = plan_output_specs(plan, bucket)
-    model = PipelineModel(**model_kw)
-    if layout == "chw":
-        imgs = np.transpose(imgs, (0, 3, 1, 2)).copy()
+    model = PipelineModel()
+    import jax
+
+    if device_input:
+        imgs = jax.device_put(imgs)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        outs = model.run(plan, imgs, src_hw, out_hws, specs, layout=layout)
-        import jax
-
+        outs = model.run(plan, imgs, src_hw, out_hws, specs)
         jax.block_until_ready(outs)
     donation_warnings = [w for w in caught
                          if "donated buffers" in str(w.message)]
@@ -55,14 +56,14 @@ def test_resample_only_plan_does_not_donate():
                         {"size": 48, "crop_to_fit": True}),
         OperationParams(OperationType.RESIZE,
                         {"width": 64, "height": 48, "keep_aspect": False}),
-    ], use_pallas=False)
+    ])
 
 
 def test_flip_grayscale_plan_does_not_warn():
     _run_plan([
         OperationParams(OperationType.FLIP, {"direction": "horizontal"}),
         OperationParams(OperationType.GRAYSCALE, {}),
-    ], use_pallas=False)
+    ])
 
 
 def test_watermark_plan_donates_without_warning():
@@ -70,20 +71,21 @@ def test_watermark_plan_donates_without_warning():
         OperationParams(OperationType.RESIZE,
                         {"width": 64, "height": 48, "keep_aspect": False}),
         OperationParams(OperationType.WATERMARK, {"text": "wm"}),
-    ], use_pallas=False)
+    ])
     assert outs[1].shape == (2, 96, 128, 3)
 
 
-def test_planar_plans_do_not_warn():
-    # CHW fused path: resample-only (no donation) and +watermark (donated).
+def test_device_resident_plans_do_not_warn():
+    # Device-decoded batches arrive as device arrays: resample-only (no
+    # donation) and +watermark (donated).
     _run_plan([
         OperationParams(OperationType.THUMBNAIL,
                         {"size": 48, "crop_to_fit": True}),
         OperationParams(OperationType.RESIZE,
                         {"width": 64, "height": 48, "keep_aspect": True}),
-    ], layout="chw", use_pallas=True, pallas_interpret=True)
+    ], device_input=True)
     _run_plan([
         OperationParams(OperationType.RESIZE,
                         {"width": 64, "height": 48, "keep_aspect": True}),
         OperationParams(OperationType.WATERMARK, {"text": "wm"}),
-    ], layout="chw", use_pallas=True, pallas_interpret=True)
+    ], device_input=True)

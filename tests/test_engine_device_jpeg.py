@@ -1,9 +1,9 @@
-"""Engine integration of TPU-side JPEG decode (device_jpeg=True).
+"""Engine integration of device-side JPEG decode (device_jpeg=True).
 
 With the flag on, baseline 4:2:0 JPEG inputs skip the host pixel
 decoder entirely: the streaming scanner extracts coefficient planes and
 the batched device program (ops/jpeg_decode.batched_decode_ycbcr420)
-runs IDCT + fancy chroma upsample + color convert into the planar
+runs IDCT + fancy chroma upsample + color convert into the
 bucket. Outputs must match the host-decoded path within the float-vs-
 integer-IDCT tolerance (~1-2 LSB).
 """
@@ -64,10 +64,8 @@ def make_task(fmt="png"):
 def engines(tmp_path):
     s1 = LocalFSObjectStore(str(tmp_path / "dev"))
     s2 = LocalFSObjectStore(str(tmp_path / "host"))
-    e1 = ProcessingEngine(s1, device_jpeg=True, use_pallas=True,
-                          pallas_interpret=True, codec_threads=2)
-    e2 = ProcessingEngine(s2, device_jpeg=False, use_pallas=True,
-                          pallas_interpret=True, codec_threads=2)
+    e1 = ProcessingEngine(s1, device_jpeg=True, codec_threads=2)
+    e2 = ProcessingEngine(s2, device_jpeg=False, codec_threads=2)
     yield (e1, s1), (e2, s2)
     e1.close()
     e2.close()
@@ -235,22 +233,13 @@ def test_device_encode_skipped_for_png_output(engines):
 
 
 def test_device_jpeg_default_policy(tmp_path, monkeypatch):
-    """Unset env -> auto: on only when the backend is TPU, the native
-    scanner exists, AND the host is core-starved (the device codec caps
-    chip JPEG throughput; big host codec pools outrun it — PERF.md).
-    Tests run on CPU, so auto is off here; explicit 1/0 forces."""
-    import jax
-
-    from imageprocessor_tpu.runtime.engine import (
-        DEVICE_JPEG_CORE_THRESHOLD,
-        usable_cores,
-    )
-
+    """Unset env -> auto: on only on a GPU, with the native scanner, on
+    a core-starved host (runtime/device.py). Tests run on the CPU, so
+    auto is off here; explicit 1/0 forces."""
     monkeypatch.delenv("IMAGEPROCESSOR_DEVICE_JPEG", raising=False)
     eng = ProcessingEngine(LocalFSObjectStore(str(tmp_path)))
-    assert eng.device_jpeg is (
-        jax.default_backend() == "tpu" and nc.available()
-        and usable_cores() < DEVICE_JPEG_CORE_THRESHOLD)
+    assert eng.caps.backend == "cpu"
+    assert eng.device_jpeg is False
     eng.close()
     monkeypatch.setenv("IMAGEPROCESSOR_DEVICE_JPEG", "1")
     eng = ProcessingEngine(LocalFSObjectStore(str(tmp_path)))

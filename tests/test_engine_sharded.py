@@ -83,15 +83,14 @@ def _run_both(blobs, fmt, sharded_kw, single_kw=None):
 
 
 def test_engine_process_tasks_sharded_matches_single():
-    """XLA path (no Pallas) over a 4-way data mesh: mixed sizes landing
-    in two buckets, batch padded to the data axis."""
+    """HWC path over a 4-way data mesh: mixed sizes landing in two
+    buckets, batch padded to the data axis."""
     blobs = [_blob(100, 140), _blob(120, 150), _blob(60, 70),
              _blob(100, 140), _blob(90, 130)]
     res_s, res_1, st_s, st_1 = _run_both(
         blobs, "png",
-        {"data_axis": 4, "use_pallas": False})
-    assert ProcessingEngine(CaptureStore(), data_axis=4,
-                            use_pallas=False)._mesh is not None
+        {"data_axis": 4})
+    assert ProcessingEngine(CaptureStore(), data_axis=4)._mesh is not None
     for rs, r1 in zip(res_s, res_1):
         assert rs.result.status is ImageStatus.COMPLETED
         assert r1.result.status is ImageStatus.COMPLETED
@@ -102,13 +101,13 @@ def test_engine_process_tasks_sharded_matches_single():
 
 
 def test_engine_sharded_pallas_planar_path():
-    """The production hot path sharded: Pallas (interpret on CPU) with
-    JPEG inputs — planar/native decode when the codec is available."""
+    """JPEG inputs through the host codec over a 4-way data mesh match
+    the single-device engine byte for byte."""
     blobs = [_blob(110, 150, "JPEG"), _blob(120, 140, "JPEG"),
              _blob(100, 150, "JPEG"), _blob(115, 145, "JPEG")]
     res_s, res_1, st_s, st_1 = _run_both(
         blobs, "jpeg",
-        {"data_axis": 4, "use_pallas": True, "pallas_interpret": True})
+        {"data_axis": 4, "device_jpeg": False})
     for rs, r1 in zip(res_s, res_1):
         assert rs.result.status is ImageStatus.COMPLETED
         assert r1.result.status is ImageStatus.COMPLETED
@@ -117,10 +116,10 @@ def test_engine_sharded_pallas_planar_path():
 
 
 def test_engine_sharded_device_jpeg_coef_path():
-    """The production-default TPU combination: device_jpeg auto-ON plus
-    the auto-built mesh — JPEG uploads take the coefficient layout
-    (batched device IDCT decode) into run_sharded. Exercised explicitly
-    here because on CPU both defaults are off (auto policies)."""
+    """The multi-GPU combination: device_jpeg plus the mesh — JPEG
+    uploads take the coefficient layout (batched device IDCT decode)
+    into run_sharded. Exercised explicitly here because on the CPU both
+    defaults are off (auto policies)."""
     from imageprocessor_tpu.runtime import nativecodec as nc
 
     if not nc.available() or not hasattr(nc._load(), "ip_jpeg_scan_dims"):
@@ -129,10 +128,8 @@ def test_engine_sharded_device_jpeg_coef_path():
              _blob(100, 150, "JPEG"), _blob(115, 145, "JPEG")]
     tasks = [(_task(DEFAULT_OPS, "jpeg"), b) for b in blobs]
     st_s, st_1 = CaptureStore(), CaptureStore()
-    eng_s = ProcessingEngine(st_s, data_axis=4, device_jpeg=True,
-                             use_pallas=True, pallas_interpret=True)
-    eng_1 = ProcessingEngine(st_1, device_jpeg=True,
-                             use_pallas=True, pallas_interpret=True)
+    eng_s = ProcessingEngine(st_s, data_axis=4, device_jpeg=True)
+    eng_1 = ProcessingEngine(st_1, device_jpeg=True)
     try:
         # confirm the coef layout is actually selected
         from imageprocessor_tpu.models.plan import normalize_operations
@@ -152,16 +149,14 @@ def test_engine_sharded_device_jpeg_coef_path():
 
 
 def test_engine_sharded_pallas_codec_kernels(monkeypatch):
-    """Kernel-eligible bucket geometry (250x400 -> 256x512, W%128==0)
-    on a 4-way data mesh: BOTH fused Pallas codec kernels must run
-    under shard_map (engine._codec_sharded), scaling the codec halves
-    across local chips like the pixel pipeline — and match the
-    single-device engine byte-for-byte.
+    """On a 4-way data mesh BOTH XLA codec programs (decode and the
+    encode front half) run under shard_map (engine._codec_program),
+    scaling the codec halves across local cards like the pixel
+    pipeline — and match the single-device engine byte-for-byte.
 
     Splice transcode is disabled so the watermark rendition actually
-    exercises the device ENCODE kernel (with it on, eligible watermark
-    groups skip the encode front half entirely — the encode path here
-    pins the fallback for mixed/non-editable streams)."""
+    exercises the device encode (with it on, eligible watermark groups
+    skip the encode front half entirely)."""
     monkeypatch.setenv("IMAGEPROCESSOR_JPEG_SPLICE", "0")
     from imageprocessor_tpu.runtime import nativecodec as nc
 
@@ -171,22 +166,17 @@ def test_engine_sharded_pallas_codec_kernels(monkeypatch):
              _blob(230, 395, "JPEG"), _blob(245, 400, "JPEG")]
     tasks = [(_task(DEFAULT_OPS, "jpeg"), b) for b in blobs]
     st_s, st_1 = CaptureStore(), CaptureStore()
-    eng_s = ProcessingEngine(st_s, data_axis=4, device_jpeg=True,
-                             use_pallas=True, pallas_interpret=True)
-    eng_1 = ProcessingEngine(st_1, device_jpeg=True,
-                             use_pallas=True, pallas_interpret=True)
+    eng_s = ProcessingEngine(st_s, data_axis=4, device_jpeg=True)
+    eng_1 = ProcessingEngine(st_1, device_jpeg=True)
     try:
         res_s = eng_s.process_tasks(tasks)
         res_1 = eng_1.process_tasks(
             [(_task(DEFAULT_OPS, "jpeg"), b) for b in blobs])
-        cache_keys = list(eng_s.model._cache)
-        assert any(k[:2] == ("pjsh", "decode") for k in cache_keys
-                   if isinstance(k, tuple)), cache_keys
-        assert any(k[:2] == ("pjsh", "encode") for k in cache_keys
-                   if isinstance(k, tuple)), cache_keys
-        single_keys = list(eng_1.model._cache)
-        assert not any(isinstance(k, tuple) and k and k[0] == "pjsh"
-                       for k in single_keys)
+        codec = [k[2] for k in eng_s.model._cache
+                 if isinstance(k, tuple) and k[0] == "codec"]
+        assert "decode" in codec and "encode" in codec, codec
+        assert not any(isinstance(k, tuple) and k and k[0] == "codec"
+                       for k in eng_1.model._cache)
     finally:
         eng_s.close()
         eng_1.close()
@@ -199,12 +189,11 @@ def test_engine_sharded_pallas_codec_kernels(monkeypatch):
 
 def test_engine_spatial_mesh_matches_single():
     """DEVICE_SPACE_AXIS honored: a (2 data x 2 space) mesh routes the
-    GSPMD jit path (XLA auto-partitions the width axis; Pallas off)."""
+    GSPMD jit path (XLA auto-partitions the width axis)."""
     blobs = [_blob(100, 140), _blob(120, 150), _blob(90, 130)]
     res_s, res_1, st_s, st_1 = _run_both(
         blobs, "png",
-        {"data_axis": 2, "space_axis": 2},
-        {"use_pallas": False})
+        {"data_axis": 2, "space_axis": 2}, {})
     for rs, r1 in zip(res_s, res_1):
         assert rs.result.status is ImageStatus.COMPLETED
         for a_s, a_1 in zip(rs.artifacts, r1.artifacts):
@@ -218,7 +207,7 @@ def test_engine_sharded_per_image_failure_isolation():
              (_task(DEFAULT_OPS), b"not an image at all"),
              (_task(DEFAULT_OPS), _blob(90, 130))]
     store = CaptureStore()
-    eng = ProcessingEngine(store, data_axis=4, use_pallas=False)
+    eng = ProcessingEngine(store, data_axis=4)
     try:
         res = eng.process_tasks(tasks)
     finally:
@@ -240,7 +229,7 @@ def test_worker_uses_engine_mesh(tmp_path):
     )
     from imageprocessor_tpu.utils import RetryStrategy
 
-    cfg = load_config({"DEVICE_DATA_AXIS": "4", "DEVICE_USE_PALLAS": "false"})
+    cfg = load_config({"DEVICE_DATA_AXIS": "4"})
     cfg.worker.batch_size = 4
     meta = SQLiteMetadataStore(":memory:")
     store = LocalFSObjectStore(str(tmp_path / "objects"))

@@ -62,8 +62,7 @@ def wm_task(fmt="jpeg", extra_ops=(), **params):
 @pytest.fixture()
 def engine(tmp_path):
     store = LocalFSObjectStore(str(tmp_path / "objects"))
-    eng = ProcessingEngine(store, device_jpeg=True, use_pallas=True,
-                           pallas_interpret=True, codec_threads=2)
+    eng = ProcessingEngine(store, device_jpeg=True, codec_threads=2)
     yield eng, store
     eng.close()
 
@@ -344,7 +343,7 @@ def test_watermark_only_splices_without_device_jpeg(tmp_path):
     scale-out workers run). The rendition keeps the byte-identical
     untouched region."""
     store = LocalFSObjectStore(str(tmp_path / "objects"))
-    eng = ProcessingEngine(store, device_jpeg=False, use_pallas=False)
+    eng = ProcessingEngine(store, device_jpeg=False)
     try:
         blob = jpeg_bytes(320, 448)
         res = eng.process_tasks([(wm_task(), blob)])[0]
@@ -367,7 +366,7 @@ def test_watermark_only_mixed_eligibility_without_device_jpeg(tmp_path):
     fails with a decode error instead of being zero-filled into a
     COMPLETED garbage rendition."""
     store = LocalFSObjectStore(str(tmp_path / "objects"))
-    eng = ProcessingEngine(store, device_jpeg=False, use_pallas=False)
+    eng = ProcessingEngine(store, device_jpeg=False)
     try:
         base = jpeg_bytes(320, 448)
         arr = np.asarray(PILImage.open(io.BytesIO(base)))
@@ -435,7 +434,7 @@ def test_splice_partial_mcu_geometry(tmp_path, hw, pos, subsampling):
     subsamples chroma to 4:2:0, splice keeps the source's sampling)."""
     h, w = hw
     store = LocalFSObjectStore(str(tmp_path / "objects"))
-    eng = ProcessingEngine(store, device_jpeg=False, use_pallas=False)
+    eng = ProcessingEngine(store, device_jpeg=False)
     try:
         yy = np.linspace(0, 170, h)[:, None, None]
         arr = np.clip(yy + RNG.integers(0, 40, (h, w, 3)), 0,

@@ -1,4 +1,4 @@
-"""TPU-side JPEG decode (host Huffman + device iDCT) fidelity tests."""
+"""Device-side JPEG decode (host Huffman + device iDCT) fidelity tests."""
 
 import io
 import math

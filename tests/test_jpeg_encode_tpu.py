@@ -1,4 +1,4 @@
-"""TPU-side JPEG encode (ops/jpeg_encode.py + native/jpeg_emit.cpp).
+"""Device-side JPEG encode (ops/jpeg_encode.py + native/jpeg_emit.cpp).
 
 Two validation angles:
 * transcode identity — scan(emit(P)) must reproduce the coefficient

@@ -110,12 +110,12 @@ def test_nonbatchable_plan_single_path(harness):
 
 
 def test_device_stage_failure_is_transient(harness):
-    """A device/tunnel/compile hiccup must nack the micro-batch for
+    """A device/transport/compile hiccup must nack the micro-batch for
     redelivery — never permanently fail it (ADVICE r1 #2)."""
     uc, meta, broker, w = harness
 
     def boom(group):
-        raise RuntimeError("tunnel reset by peer")
+        raise RuntimeError("device transport reset by peer")
 
     w.engine.device_group = boom
     img = uc.upload_image(png_bytes(), "d.png", "image/png", OPS)
@@ -127,10 +127,8 @@ def test_device_stage_failure_is_transient(harness):
 
 
 def test_pipelined_with_device_jpeg(tmp_path):
-    """JPEG uploads flow through the pipelined worker with the TPU-side
+    """JPEG uploads flow through the pipelined worker with the device
     decode path on (coef batch layout end to end)."""
-    from imageprocessor_tpu.models.pipeline import PipelineModel
-
     cfg = load_config({})
     cfg.worker.batch_size = 4
     cfg.worker.batch_deadline_ms = 30
@@ -141,8 +139,6 @@ def test_pipelined_with_device_jpeg(tmp_path):
                       retries=RetryStrategy(attempts=1, delay_ms=1))
     worker = PipelinedWorker(cfg, meta=meta, store=store, broker=broker)
     worker.engine.device_jpeg = True
-    worker.engine.model = PipelineModel(use_pallas=True,
-                                        pallas_interpret=True)
     worker._idle_sleep = 0.01
     thread = threading.Thread(target=worker.run, daemon=True)
     thread.start()

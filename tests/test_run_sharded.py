@@ -42,7 +42,7 @@ def test_run_sharded_matches_single_device():
     out_hws = {1: out_hw}
     specs = plan_output_specs(plan, bucket)
 
-    model = PipelineModel(use_pallas=False)
+    model = PipelineModel()
     single = [np.asarray(o) for o in
               model.run(plan, imgs, src_hw, out_hws, specs)]
 
@@ -72,10 +72,9 @@ def _default_plan():
     ])
 
 
-def _inputs(b, bucket, planar=False):
-    """Mixed per-image dims whose resample scales stay inside one quantized
-    scale bucket, so the local (per-shard) Pallas plan geometry matches the
-    global one — the production invariant run_sharded relies on."""
+def _inputs(b, bucket):
+    """A batch of mixed per-image dims (B, H, W, 3) with keep-aspect
+    resize targets."""
     imgs = np.zeros((b, *bucket, 3), dtype=np.uint8)
     src_hw = np.zeros((b, 2), dtype=np.int32)
     for i in range(b):
@@ -88,21 +87,18 @@ def _inputs(b, bucket, planar=False):
         tw, th = keep_aspect_dims(int(src_hw[i, 1]), int(src_hw[i, 0]),
                                   128, 96)
         out_hw[i] = (th, tw)
-    if planar:
-        imgs = np.ascontiguousarray(np.transpose(imgs, (0, 3, 1, 2)))
     return imgs, src_hw, {1: out_hw}
 
 
-def test_run_sharded_pallas_interpret_matches_single():
-    """Pallas resample kernels executing INSIDE shard_map (HWC layout):
-    the global index arrays are P('data')-sharded and each shard's slice
-    must line up with the local-batch kernel plan."""
+def test_run_sharded_hwc_matches_single():
+    """The HWC program INSIDE shard_map: each card's slice of the batch
+    and of the per-image geometry arrays line up (P('data'))."""
     plan = _default_plan()
     b, bucket = 8, (256, 256)
     imgs, src_hw, out_hws = _inputs(b, bucket)
     specs = plan_output_specs(plan, bucket)
 
-    model = PipelineModel(use_pallas=True, pallas_interpret=True)
+    model = PipelineModel()
     single = [np.asarray(o) for o in
               model.run(plan, imgs, src_hw, out_hws, specs)]
     mesh = make_mesh(4, space=1)
@@ -123,47 +119,44 @@ def test_run_sharded_pallas_interpret_matches_single():
                                       single[2][i, :h, :w])
 
 
-def test_run_sharded_planar_fused_matches_single():
-    """The production multi-chip hot path: the single-sweep fused
-    resize+thumbnail Pallas kernel, planar CHW end-to-end, under
-    shard_map — exercises run_sharded's global fused-args rebuild
-    (FusedPlan batch override + P('data') sharding of (B*NB,...) index
-    arrays)."""
+def test_run_sharded_device_resident_input_matches_single():
+    """The multi-card device-decode hot path: the batch arrives as a
+    device array (the device JPEG decode's output, committed to one
+    card); run_sharded re-places it onto the mesh and matches the
+    single-device run exactly, with every output split over 4 devices."""
     plan = _default_plan()
     b, bucket = 8, (256, 256)
-    imgs, src_hw, out_hws = _inputs(b, bucket, planar=True)
+    imgs, src_hw, out_hws = _inputs(b, bucket)
     specs = plan_output_specs(plan, bucket)
 
-    model = PipelineModel(use_pallas=True, pallas_interpret=True)
-    assert model.supports_planar(plan, bucket)
+    model = PipelineModel()
     single = [np.asarray(o) for o in
-              model.run(plan, imgs, src_hw, out_hws, specs, layout="chw")]
+              model.run(plan, imgs, src_hw, out_hws, specs)]
     mesh = make_mesh(4, space=1)
-    sharded = [np.asarray(o) for o in
-               model.run_sharded(mesh, plan, imgs, src_hw, out_hws, specs,
-                                 layout="chw")]
+    on_device = jax.device_put(imgs, jax.devices()[0])
+    outs = model.run_sharded(mesh, plan, on_device, src_hw, out_hws, specs)
+    for o in outs:
+        assert len({s.device for s in o.addressable_shards}) == 4
+    sharded = [np.asarray(o) for o in outs]
 
     out_hw = out_hws[1]
     for s, r in zip(sharded, single):
         assert s.shape == r.shape
     for i in range(b):
-        # thumbnail + resize come from the fused kernel; the reference
-        # output is the same kernel single-device, so equality is exact
-        np.testing.assert_array_equal(sharded[0][i, :, :64, :64],
-                                      single[0][i, :, :64, :64])
+        np.testing.assert_array_equal(sharded[0][i, :64, :64],
+                                      single[0][i, :64, :64])
         th, tw = out_hw[i]
-        np.testing.assert_array_equal(sharded[1][i, :, :th, :tw],
-                                      single[1][i, :, :th, :tw])
+        np.testing.assert_array_equal(sharded[1][i, :th, :tw],
+                                      single[1][i, :th, :tw])
         h, w = src_hw[i]
-        np.testing.assert_array_equal(sharded[2][i, :, :h, :w],
-                                      single[2][i, :, :h, :w])
+        np.testing.assert_array_equal(sharded[2][i, :h, :w],
+                                      single[2][i, :h, :w])
 
 
 def test_run_sharded_mixed_scale_quantization_matches_single():
-    """Shard 0's images must NOT determine the kernel geometry: here the
-    batch's max resample scale lives in the LAST shard (shard 0 images
-    quantize to a smaller scale bucket), so plans derived from shard 0
-    alone would disagree with the globally built index arrays."""
+    """Per-image scales differ across shards (the batch's steepest
+    downscale lives in the LAST shard): every shard resamples with its
+    own images' geometry."""
     plan = _default_plan()
     b, bucket = 8, (512, 512)
     imgs = np.zeros((b, *bucket, 3), dtype=np.uint8)
@@ -182,7 +175,7 @@ def test_run_sharded_mixed_scale_quantization_matches_single():
     out_hws = {1: out_hw}
     specs = plan_output_specs(plan, bucket)
 
-    model = PipelineModel(use_pallas=True, pallas_interpret=True)
+    model = PipelineModel()
     single = [np.asarray(o) for o in
               model.run(plan, imgs, src_hw, out_hws, specs)]
     mesh = make_mesh(4, space=1)

@@ -2,7 +2,7 @@
 
 Replays the reference's README flows (reference: README.md:51-116) against
 the standalone stack: aiohttp API + memory broker + localfs objects +
-sqlite metadata + the TPU engine on the CPU backend.
+sqlite metadata + the device engine on the CPU backend.
 """
 
 import asyncio

@@ -35,9 +35,8 @@ GOLDEN = os.path.join(HERE, "golden")
 
 
 def _dejavu() -> str:
-    import matplotlib
-
-    return matplotlib.get_data_path() + "/fonts/ttf/DejaVuSans.ttf"
+    return os.path.join(os.path.dirname(os.path.abspath(wm.__file__)),
+                        os.pardir, "assets", "fonts", "DejaVuSans.ttf")
 
 
 def _bg() -> np.ndarray:
